@@ -65,14 +65,9 @@ def _cam(width, height, az=0.8):
 
 
 def _render_fn():
-    import jax
+    from pegasus_tpu.ops.backends import default_rasterize_fn
 
-    if jax.default_backend() == "cpu":
-        from pegasus_tpu.ops.rasterize_tiled import rasterize_tiled as r
-
-        return lambda s, c: r(s, c, max_objects=8)
-    from pegasus_tpu.ops.rasterize_pallas import rasterize_pallas as r
-
+    r = default_rasterize_fn()
     return lambda s, c: r(s, c, max_objects=8)
 
 
@@ -214,10 +209,8 @@ def bench_variants(rng, n_variants):
     cam = _cam(320, 240)
     n_dev = len(jax.devices())
     mesh = make_mesh((n_dev,), ("scene",))
-    # memory-bounded chunks: 125 variants/device (the v5e-8 layout for the
-    # 1000-variant spec: one shard_map call of 1000 = 125/chip; a single
-    # chip runs the SAME 125-wide program sequentially — frames at
-    # 240x320x3 f32 would be 39 GB for 1000 variants in one buffer)
+    # memory-bounded chunks: 125 variants/device (frames at 240x320x3 f32
+    # would be 39 GB for 1000 variants in one buffer)
     chunk = min(n_variants, 125 * n_dev)
     n_chunks = -(-n_variants // chunk)
     res = generate_scene_variants(
@@ -260,7 +253,7 @@ def main(argv=None):
     if os.path.exists(args.out):  # merge partial runs
         with open(args.out) as f:
             report = json.load(f)
-    report["backend"] = jax.default_backend()
+    report["backend"] = jax.devices()[0].platform
     report["devices"] = len(jax.devices())
     selected = {int(s) for s in args.configs.split(",") if s}
     for num, name, fn in [

@@ -1,8 +1,8 @@
 // Native PNG encoder for the dataset writer's host-side hot path.
 //
 // The reference writes every frame's PNGs through Python imageio on
-// ad-hoc threads (reference: pegasus.py:346-358).  On the TPU pipeline the
-// renderer outruns Python PNG encoding by an order of magnitude, so the
+// ad-hoc threads (reference: pegasus.py:346-358).  The renderer outruns
+// Python PNG encoding by an order of magnitude, so the
 // encoder is native: zlib deflate + CRC behind a tiny C ABI, called from a
 // bounded Python thread pool (the GIL is released for the entire encode,
 // so the pool parallelizes for real).

@@ -3,8 +3,8 @@
 Mirrors the reference's offline asset-creation entry scripts
 (reference: src/reconstruction/environment_reconstruction.py:40-92 and
 spherical_object_reconstruction.py:96-215): COLMAP SfM -> metric scale
-(ArUco or constant) -> plane alignment -> 3DGS training on TPU through
-the differentiable Pallas pair -> alpha-shape URDF generation.  The
+(ArUco or constant) -> plane alignment -> 3DGS training through the
+differentiable tiled compositor -> alpha-shape URDF generation.  The
 resulting folder plugs straight into the generator (see
 examples/generate_dataset.py).
 

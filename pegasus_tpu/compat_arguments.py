@@ -47,7 +47,7 @@ class ModelParams(ParamGroup):
         self._images = "images"
         self._resolution = -1
         self._white_background = False
-        self.data_device = "tpu"
+        self.data_device = "cuda"
         self.eval = False
         super().__init__(parser, "Loading Parameters", fill_none=sentinel)
 

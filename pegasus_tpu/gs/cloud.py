@@ -1,6 +1,6 @@
 """Immutable Gaussian-splat cloud pytree and functional SE(3) ops.
 
-TPU-first redesign of the reference's mutable ``GaussianModel``
+Functional redesign of the reference's mutable ``GaussianModel``
 (reference: src/gs/gaussian_model.py:35-654):
 
 * parameters are raw (pre-activation), exactly as stored in the Inria PLY:
@@ -21,7 +21,7 @@ from typing import Optional, Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pegasus_tpu.utils import pytree
 from jax.lax import Precision
 
 _PREC = Precision.HIGHEST  # geometry math must be f32 (build defaults matmul to bf16)
@@ -30,7 +30,7 @@ from pegasus_tpu.utils import quaternion as quat
 from pegasus_tpu.utils import sh as shlib
 
 
-@struct.dataclass
+@pytree.dataclass
 class GaussianCloud:
     """A batch of N Gaussian splats (raw parameterization).
 

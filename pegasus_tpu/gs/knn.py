@@ -4,7 +4,7 @@ Replacement for the reference's ``simple-knn`` CUDA extension
 (``distCUDA2``: mean squared distance to the 3 nearest neighbors, used to
 initialize splat scales — reference: src/gs/gaussian_model.py:25,144-149).
 Blocked pairwise distances keep memory at O(N * block) and map onto the
-MXU via the |a-b|^2 = |a|^2 + |b|^2 - 2ab expansion.
+matrix products via the |a-b|^2 = |a|^2 + |b|^2 - 2ab expansion.
 """
 
 from __future__ import annotations

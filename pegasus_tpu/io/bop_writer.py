@@ -49,7 +49,7 @@ def _to_json(o):
     raise TypeError(f"not JSON serializable: {type(o)}")
 
 
-from pegasus_tpu.io.png import write_png  # native zlib encoder, GIL-free
+from pegasus_tpu.io.png import read_png, write_png
 
 
 # NDDS corner ordering of open3d box points (reference diagram and reorder,
@@ -334,8 +334,6 @@ def calculate_gt_info(dataset_root, dataset_name=None, scene_ids=None, object_li
         dataset root comes from the ``PEGASUS_PATH`` environment variable
         (reference: pegasus.py:407) and scenes are 1..num_scenes.
     """
-    import imageio.v2 as imageio
-
     if isinstance(dataset_name, int):
         # reference call shape: (dataset_name, num_scenes, object_list)
         num_scenes = dataset_name
@@ -366,12 +364,12 @@ def calculate_gt_info(dataset_root, dataset_name=None, scene_ids=None, object_li
                     "visib_fract": 0.0,
                 }
                 if amodal_p.exists():
-                    am = np.asarray(imageio.imread(amodal_p)) > 127
+                    am = read_png(amodal_p) > 127
                     rec["px_count_all"] = int(am.sum())
                     rec["px_count_valid"] = int(am.sum())
                     rec["bbox_obj"] = _mask_bbox(am)
                 if visib_p.exists():
-                    vis = np.asarray(imageio.imread(visib_p)) > 127
+                    vis = read_png(visib_p) > 127
                     rec["px_count_visib"] = int(vis.sum())
                     rec["bbox_visib"] = _mask_bbox(vis)
                 if rec["px_count_all"] > 0:

@@ -2,33 +2,31 @@
 
 Shared front-end of the tiled XLA and Pallas rasterizer backends.  The
 CUDA reference builds this structure with a global (tile|depth)-key radix
-sort over dynamically-counted duplicates; the TPU formulation keeps every
-shape static and — crucially — GATHER-FREE:
+sort over dynamically-counted duplicates; this formulation keeps every
+shape static and avoids gathers and scatters in the duplication step:
 
   * duplication uses per-splat slot grids with STATIC caps — a cheap
     'small' bucket (most splats cover 1-6 tiles) plus a top_k-compacted
-    'big' bucket (searchsorted-expansion and scatter/gather inverse maps
-    measured 12-36 ms on TPU; all are avoided);
+    'big' bucket (and, for large scenes, a 'mid' bucket), instead of a
+    searchsorted expansion or scatter/gather inverse maps;
   * depth ordering rides the sort key: key = tile_id << depth_bits |
     depth_rank, so ONE 32-bit sort yields per-tile depth-ordered segments;
   * the ENTRY sort carries ONE index payload and the 16 packed parameters
-    are row-gathered from the compact [N+1, 16] matrix afterwards.  The
-    alternative — riding all 16 columns through the sort as payload
-    operands — looks cheaper in isolation but LOSES end to end
-    (v5e, carry-threaded fori_loop timing: 640x480 frame 14.4 -> 26.7 ms
-    at 210k splats, 32.6 -> 57.8 ms at 1M), because each column must
-    first be broadcast to slot-major entry layout (16 x 2.5M f32 of HBM
-    writes) while the post-sort gather reads only live entries from a
-    matrix that stays splat-sized.  The output is a transposed [16, M]
-    parameter matrix whose lane axis is entry order: exactly the layout
-    the Pallas kernel DMAs.
+    are row-gathered from the compact [N+1, 16] matrix afterwards, which
+    reads only live entries from a matrix that stays splat-sized (riding
+    all 16 columns through the sort would first broadcast each to the
+    slot-major entry layout).  The output is a transposed [16, M]
+    parameter matrix whose lane axis is entry order: each parameter row
+    of a tile's segment is contiguous, which is what the compositor
+    kernels read;
   * the COMPACTION sort (big/mid winner selection) is the opposite
-    trade: its payloads are splat-sized (no slot broadcast), and TPU
-    gathers are per-index bound and NON-linear in index count (8 x 32k
-    rows ~0.3 ms, 7 x 262k rows 33 ms), so winner fields ride it as
-    three bit-packed int32 words instead of being gathered post-sort
-    (~0.5 ms per payload at N=1M; 1M frame 18.4 -> 32.4 fps with the
-    mid bucket).
+    trade: its payloads are splat-sized (no slot broadcast), so winner
+    fields ride it as three bit-packed int32 words instead of being
+    gathered post-sort.
+
+Whether exact duplication (per-splat tile counts, a prefix sum and one
+radix sort, as the CUDA reference does) beats these slot grids on the
+GPU is an open question (ROADMAP).
 """
 
 from __future__ import annotations
@@ -54,27 +52,6 @@ P_RADIUS = 10
 P_OBJ = 11
 P_ENV = 12  # 1.0 if environment splat (object_id == 0)
 
-# 8-row GENERATION layout (bin_splats(pack8=True)): the entry gather is
-# per-index bound AND slowed by table row bytes past ~16 B (measured in
-# benchmarks/gather_variants_tpu.py: [1M,16] f32 18.6 ms vs [1M,8] 11.6
-# at 1.5M random indices), so the generation path packs the 6 fields that
-# tolerate fixed-point into 2 bitcast u32 words next to the 6 that do not
-# (means/conics/depth need f32: 16-bit means alias at >=1/16 px).  Row
-# count must be a multiple of 8 (Mosaic DMA slices tile sublanes by 8).
-# Quantization noise: 10-bit color over [0, COLOR_MAX] ~59 dB, 14-bit
-# opacity ~107 dB — far above the 40 dB parity gate; radius is EXACT
-# (integer-valued ceil(3 sigma), and capping at 1023 cannot change the
-# |dx| <= rad test since |dx| <= width < 1023), object ids < 256 exact.
-# Differentiable paths keep the 16-row f32 layout (quantization has no
-# useful gradient).
-PACKED8_DIM = 8
-P8_MX, P8_MY = 0, 1
-P8_CA, P8_CB, P8_CC = 2, 3, 4
-P8_DEPTH = 5
-P8_RGB = 6  # r10 | g10 << 10 | b10 << 20, fixed-point over [0, COLOR_MAX]
-P8_ORO = 7  # opac14 | min(radius, 1023) << 14 | object_id << 24
-COLOR_MAX = 4.0  # colors are max(SH+0.5, 0); >4 is clipped (unseen in practice)
-
 
 class TileBins(NamedTuple):
     """Depth-ordered per-tile entry segments, transposed parameter layout.
@@ -93,10 +70,11 @@ class TileBins(NamedTuple):
     tile: int
     # scalar bool: live entries exceeded entry_cap, so the HIGHEST tile
     # ids (bottom image rows) were truncated.  Always False when
-    # entry_cap is None.  Callers that enable capping on untested scene
+    # entry_cap is None (a Python False, so importing this module
+    # initializes no backend).  Callers that enable capping on untested scene
     # shapes should surface this (the bench parity gate covers the
     # shipped defaults every round).
-    overflow: jnp.ndarray = jnp.asarray(False)
+    overflow: jnp.ndarray = False
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(5, 6, 7, 8))
@@ -114,23 +92,20 @@ def _gather_rows_structured(
     """packed[src] whose transpose rides the binning's SLOT STRUCTURE.
 
     The plain gather's autodiff transpose is an XLA scatter-add of one
-    16-float row per entry — measured 18 ms of a 512x512 training step
-    at 150k splats (~0.9M entries), the single largest stage.  But the
-    pre-sort entry layout is dense and slot-major ([a_small, N] core
-    windows + [a_big, big_budget] big-bucket slots), so if the cotangent
-    rows are returned to PRE-SORT order, per-splat sums are plain
-    reshape+reduces plus one tiny scatter-add over the big_budget
-    winners.  Getting them there is one payload sort by the `pos` column
-    the forward sort carries (16 payload columns ride ~free next to the
-    key: measured 4.3 ms at 0.93M).  ~3x faster than the scatter end to
-    end; numerics identical up to float addition order per splat.
+    16-float row per entry.  But the pre-sort entry layout is dense and
+    slot-major ([a_small, N] core windows + [a_big, big_budget] big-bucket
+    slots), so if the cotangent rows are returned to PRE-SORT order,
+    per-splat sums are plain reshape+reduces plus one tiny scatter-add
+    over the big_budget winners.  Getting them there is one payload sort
+    by the `pos` column the forward sort carries.  Numerics are identical
+    up to float addition order per splat.
 
     ``abs_sink`` is a gradient SIDE CHANNEL for AbsGS-style densification
     (Ye et al. 2024: signed per-pixel position gradients of a large splat
     cancel, so fine detail under one big splat never crosses the densify
     threshold).  The forward ignores it (pass zeros); its custom
     "cotangent" is the per-splat sum of |per-ENTRY mean2d cotangents| —
-    tile-granular |grad| accumulation, the TPU analogue of AbsGS's
+    tile-granular |grad| accumulation, the tiled analogue of AbsGS's
     per-pixel |grad| (cancellation across a footprint happens across
     tiles; within one 16x16 tile it is second-order).  Callers read it
     with jax.grad w.r.t. abs_sink.
@@ -176,7 +151,7 @@ _gather_rows_structured.defvjp(
 
 
 def _finish_bins(proj, sorted_key, sorted_src, overflow, n, n_tiles, ntx,
-                 nty, tile, depth_bits, lane_pad, pack8) -> TileBins:
+                 nty, tile, depth_bits, lane_pad) -> TileBins:
     """Sorted (key, src) entries -> TileBins (generation path: plain
     post-sort row gather, no entry-origin VJP structure)."""
     entry_tile = (sorted_key >> depth_bits).astype(jnp.int32)
@@ -185,7 +160,7 @@ def _finish_bins(proj, sorted_key, sorted_src, overflow, n, n_tiles, ntx,
         jnp.int32
     )
     seg_start, seg_end = bounds[:-1], bounds[1:]
-    cols = _pack_columns8(proj) if pack8 else _pack_columns(proj)
+    cols = _pack_columns(proj)
     packed = jnp.stack(cols, axis=1)
     packed = jnp.concatenate(
         [packed, jnp.zeros((1, len(cols)), jnp.float32)], axis=0
@@ -226,33 +201,6 @@ def _pack_columns(proj: ProjectedGaussians):
     ]
 
 
-def _pack_columns8(proj: ProjectedGaussians):
-    """8 per-splat parameter columns (PACKED8 layout, generation only)."""
-
-    def q(v, vmax, levels):
-        return jnp.round(
-            jnp.clip(v, 0.0, vmax) * (levels / vmax)
-        ).astype(jnp.uint32)
-
-    rq = q(proj.color_r, COLOR_MAX, 1023.0)
-    gq = q(proj.color_g, COLOR_MAX, 1023.0)
-    bq = q(proj.color_b, COLOR_MAX, 1023.0)
-    oq = q(proj.opacity, 1.0, 16383.0)
-    radq = jnp.minimum(proj.radius, 1023.0).astype(jnp.uint32)
-    objq = jnp.clip(proj.object_id, 0, 255).astype(jnp.uint32)
-    bc = lambda w: jax.lax.bitcast_convert_type(w, jnp.float32)
-    return [
-        proj.mean_x,
-        proj.mean_y,
-        proj.conic_a,
-        proj.conic_b,
-        proj.conic_c,
-        proj.depth,
-        bc(rq | (gq << 10) | (bq << 20)),
-        bc(oq | (radq << 14) | (objq << 24)),
-    ]
-
-
 def bin_splats(
     proj: ProjectedGaussians,
     width: int,
@@ -267,7 +215,6 @@ def bin_splats(
     lane_pad: int = 1024,
     entry_cap: int | None = None,
     with_entry_origin: bool = False,
-    pack8: bool = False,
     abs_grad_sink: jnp.ndarray | None = None,
     _stage: str | None = None,
 ) -> TileBins:
@@ -298,8 +245,6 @@ def bin_splats(
     and mid_budget > 0."""
     if with_entry_origin and entry_cap is not None:
         raise ValueError("with_entry_origin requires entry_cap=None")
-    if with_entry_origin and pack8:
-        raise ValueError("pack8 is generation-only (no useful gradient)")
     n = proj.mean_x.shape[0]
     if adaptive_mid:
         if mid_budget <= 0:
@@ -343,7 +288,7 @@ def bin_splats(
     w_t = tx1 - tx0 + 1
     h_t = ty1 - ty0 + 1
     area = jnp.where(onscreen, w_t * h_t, 0)
-    if _stage == 'area':  # benchmark probe (binning_stage_tpu.py)
+    if _stage == 'area':  # test probe
         return area
 
     sentinel = jnp.int32(n_tiles << depth_bits)
@@ -370,11 +315,9 @@ def bin_splats(
         return c_tx0, c_ty0, c_w, c_h
 
     # -- small bucket: EVERY splat emits its core window ----------------------
-    # layout: [a_small, N] (slot-major).  The minor dim must be the LONG
-    # axis — a [N, a_small] array pads its 2-4 lane columns to 128 on TPU
-    # (a 512 MB physical array at N=1M, measured ~14 ms of the frame); the
-    # transposed form is exactly N lanes per slot row.  Entry order within
-    # the sort input is irrelevant: the (key, src) 2-key sort canonicalizes.
+    # layout: [a_small, N] (slot-major, the long axis minor).  Entry order
+    # within the sort input is irrelevant: the (key, src) 2-key sort
+    # canonicalizes.
     c_tx0, c_ty0, c_w, c_h = core_window(tx0, ty0, w_t, h_t, mx, my)
     slot = jnp.arange(a_small, dtype=jnp.int32)[:, None]  # [a_small, 1]
     s_txs = c_tx0[None, :] + slot % c_w[None, :]
@@ -385,17 +328,11 @@ def bin_splats(
         ((s_tys * ntx + s_txs) << depth_bits) | rank_q[None, :],
         sentinel,
     )  # [a_small, N]
-    if _stage == 'small_key':
-        return small_key
 
     # -- big/mid buckets: top winners by area emit (bbox minus core) ----------
     # Winner FIELDS ride the compaction sort as three packed payload words
     # (bbox, core window, depth rank) and are sliced + bit-unpacked
-    # afterwards.  Gathering them post-sort instead (field[idx] per
-    # column) is per-index bound and NON-linear in index count on TPU:
-    # 8 x 32k-row gathers measured ~0.3 ms, but 7 x 262k (the mid
-    # bucket) measured 33 ms — vs ~0.5 ms per extra sort payload at
-    # N=1M (diag: /tmp archived in benchmarks/binning_stage_tpu.py).
+    # afterwards instead of being gathered post-sort per column.
     bx = max(1, (ntx - 1).bit_length())
     by = max(1, (nty - 1).bit_length())
     # core dims reach a_small itself when the splat FITS (a 4x1 bbox at
@@ -480,15 +417,9 @@ def bin_splats(
             sentinel,
         )
 
-    if _stage == 'big_compact':  # benchmark stage probe
-        return (b_idx, pa_all[:big_budget], pb_all[:big_budget],
-                rk_all[:big_budget])
-
     big_key = bucket_keys(
         pa_all[:big_budget], pb_all[:big_budget], rk_all[:big_budget], a_big
     )  # [a_big, big_budget]
-    if _stage == 'big_key':
-        return (small_key, big_key)
 
     key_grids = [small_key, big_key]
     idx_grids = [
@@ -537,7 +468,7 @@ def bin_splats(
         )
         return _finish_bins(
             proj, sorted_key, sorted_src, overflow, n, n_tiles, ntx, nty,
-            tile, depth_bits, lane_pad, pack8,
+            tile, depth_bits, lane_pad,
         )
 
     if mid_budget > 0:
@@ -563,14 +494,10 @@ def bin_splats(
 
     keys = jnp.concatenate([k.reshape(-1) for k in key_grids])
 
-    # entry source indices (sort cost scales with LIVE payload operands:
-    # measured +~1 ms per extra payload at M=1.8M, so the sort carries ONE
-    # index payload and the 16 param fields are row-gathered afterwards —
-    # 7.8 ms total vs 14-21 ms for a 13-payload sort)
+    # entry source indices (the sort carries ONE index payload and the 16
+    # param fields are row-gathered afterwards)
     vals = jnp.concatenate([v.reshape(-1) for v in idx_grids])
     vals = jnp.where(keys == sentinel, n, vals)  # dummy row for invalids
-    if _stage == 'keys_vals':
-        return (keys, vals)
 
     # same-tile splats whose depths agree in the top depth_bits of the float
     # bit pattern produce duplicate keys; the source index rides as a SECOND
@@ -587,7 +514,7 @@ def bin_splats(
                                               is_stable=False)
     if _stage == 'sort':
         return (sorted_key, sorted_src)
-    overflow = jnp.asarray(False)
+    overflow = False
     if entry_cap is not None and entry_cap < sorted_key.shape[0]:
         # static truncation: sentinel (invalid) entries sort PAST every live
         # one, so with cap >= live count this is free compaction.  If a
@@ -603,7 +530,7 @@ def bin_splats(
     if not with_entry_origin:
         return _finish_bins(
             proj, sorted_key, sorted_src, overflow, n, n_tiles, ntx, nty,
-            tile, depth_bits, lane_pad, pack8,
+            tile, depth_bits, lane_pad,
         )
 
     entry_tile = (sorted_key >> depth_bits).astype(jnp.int32)
@@ -615,8 +542,8 @@ def bin_splats(
     )
     seg_start, seg_end = bounds[:-1], bounds[1:]
 
-    cols = _pack_columns8(proj) if pack8 else _pack_columns(proj)
-    packed = jnp.stack(cols, axis=1)  # [N, PARAM_DIM or PACKED8_DIM]
+    cols = _pack_columns(proj)
+    packed = jnp.stack(cols, axis=1)  # [N, PARAM_DIM]
     packed = jnp.concatenate(
         [packed, jnp.zeros((1, len(cols)), jnp.float32)], axis=0
     )

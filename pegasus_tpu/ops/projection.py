@@ -7,12 +7,10 @@ by ``render``, reference: src/gs/render.py:16): world->camera transform,
 perspective Jacobian, cov2D with the +0.3 px low-pass, conic inversion,
 radius estimate and SH->RGB view-dependent color.
 
-TPU layout note: every output is a flat [N] column and ALL matrix algebra
-is expanded into per-component column arithmetic.  Small trailing dims are
-poison on TPU — a [N, 3, 3] covariance tensor is physically tiled to
-[N, 4, 128] (57x memory blowup, ~430 MB materialized at N=210k, measured
-as the dominant projection cost); column form keeps everything in fused
-VPU elementwise ops.
+Layout note: every output is a flat [N] column and ALL matrix algebra
+is expanded into per-component column arithmetic, so XLA fuses the stage
+into a few elementwise kernels instead of batches of tiny [3, 3] matrix
+products.
 """
 
 from __future__ import annotations

@@ -1,23 +1,24 @@
-"""Pallas TPU rasterizer backend: fused per-tile splat compositing.
+"""Pallas GPU compositor (Triton route): fused per-tile splat compositing.
 
-The speed-of-light path.  The XLA backend (rasterize_tiled.py) is
-bandwidth-bound: every [tiles, px, chunk] intermediate (alphas, log-terms,
-cumulative products, weights) round-trips HBM — measured ~150 ms/frame at
-640x480.  This kernel keeps the whole per-tile pipeline in VMEM:
+The XLA backend (rasterize_tiled.py) materializes dense
+[tiles, px, chunk] intermediates (alphas, log-terms, cumulative products,
+weights) in device memory and truncates every tile at a static
+``max_per_tile``.  This kernel keeps the whole per-tile pipeline in
+registers, in the shape of the CUDA reference's ``renderCUDA``:
 
-  grid = one program per 16x16 image tile;
-  scalar-prefetched tile segment offsets index the transposed entry
-  parameter matrix [16, M] built by ops/binning.py (entries depth-ordered
-  within contiguous per-tile segments);
-  the kernel DMAs 128-lane-aligned windows around its segment
-  (double-buffered), masks the out-of-segment lanes, evaluates per-pixel
-  alphas on the VPU, turns front-to-back 'over' into an exclusive
-  cumulative product in log space (cumsum as a triangular MXU matmul —
-  mosaic has no cumsum lowering), and accumulates all modality channels
-  with [px, W] @ [W, F] MXU matmuls.  HBM traffic per frame = entry
-  params + final tile accumulators (~100 MB) instead of ~13 GB.
+  grid = one program per 16x16 image tile, the 256 pixels as the block's
+  vector;
+  each program loads its own segment (``tile_start``/``tile_count``) of
+  the transposed entry parameter matrix [16, M] built by ops/binning.py
+  (entries depth-ordered within contiguous per-tile segments);
+  a ``fori_loop`` walks the segment in power-of-two chunks with masked row
+  loads, evaluates per-pixel alphas, turns front-to-back 'over' into an
+  exclusive cumulative sum in log space, and accumulates every modality
+  channel with [px, chunk] @ [chunk, F_OUT] products into one
+  per-pixel accumulator.
 
-Output channel layout (F_OUT columns per pixel):
+Output channel layout (F_OUT columns per pixel, F_OUT = the next power of
+two >= 5+3K+2):
   0:3 rgb (premultiplied), 3 depth, 4 alpha, 5:5+K seg_full,
   5+K:5+2K vis (environment excluded), 5+2K:5+3K amodal log-transmittance,
   5+3K t_full (scene transmittance), 5+3K+1 t_noenv.
@@ -30,162 +31,79 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+from jax.lax import Precision
 
 from pegasus_tpu.camera import Camera
 from pegasus_tpu.gs.cloud import GaussianCloud
 from pegasus_tpu.ops import binning
 from pegasus_tpu.ops.binning import TileBins, bin_splats
-from pegasus_tpu.ops.projection import project_gaussians
+from pegasus_tpu.ops.projection import ProjectedGaussians, project_gaussians
 from pegasus_tpu.ops.rasterize_ref import RenderOutputs
 
-_ALIGN = 128  # lane alignment of DMA windows
+# chunk 16 / 16 warps: the fastest of the (chunk, warps) pairs tried on an
+# H100 at both bench scenes (chunk 16-64, warps 4-16); wider chunks or
+# fewer warps spill registers (PERF.md)
+DEFAULT_CHUNK = 16
+NUM_WARPS = 16
 
 
-def _window_fields(p, packed8: bool):
-    """Per-entry field rows ([1, W]; rgb [3, W]) from a parameter window.
-
-    packed8 windows carry 6 f32 rows + 2 bitcast u32 rows (10/14-bit
-    fixed-point: see binning.PACKED8_DIM) — the unpack is a handful of
-    VPU integer ops per window, paid once per chunk against 2x less
-    DMA traffic and a ~40% cheaper entry gather upstream."""
-    if packed8:
-        mx = p[binning.P8_MX : binning.P8_MX + 1, :]
-        my = p[binning.P8_MY : binning.P8_MY + 1, :]
-        ca = p[binning.P8_CA : binning.P8_CA + 1, :]
-        cb = p[binning.P8_CB : binning.P8_CB + 1, :]
-        cc = p[binning.P8_CC : binning.P8_CC + 1, :]
-        depth = p[binning.P8_DEPTH : binning.P8_DEPTH + 1, :]
-        # integer work stays in i32 (Mosaic has no u32->f32 cast); every
-        # extracted field is < 2^14 so the signed view is identical
-        bc = lambda r: jax.lax.bitcast_convert_type(r, jnp.int32)
-        shr = jax.lax.shift_right_logical
-        w_rgb = bc(p[binning.P8_RGB : binning.P8_RGB + 1, :])
-        w_oro = bc(p[binning.P8_ORO : binning.P8_ORO + 1, :])
-        cs = binning.COLOR_MAX / 1023.0
-        red = (w_rgb & 0x3FF).astype(jnp.float32) * cs
-        grn = (shr(w_rgb, 10) & 0x3FF).astype(jnp.float32) * cs
-        blu = (shr(w_rgb, 20) & 0x3FF).astype(jnp.float32) * cs
-        opac = (w_oro & 0x3FFF).astype(jnp.float32) * (1.0 / 16383.0)
-        rad = (shr(w_oro, 14) & 0x3FF).astype(jnp.float32)
-        obj = shr(w_oro, 24).astype(jnp.float32)
-        rgb = jnp.concatenate([red, grn, blu], axis=0)
-    else:
-        mx = p[binning.P_MX : binning.P_MX + 1, :]
-        my = p[binning.P_MY : binning.P_MY + 1, :]
-        ca = p[binning.P_CA : binning.P_CA + 1, :]
-        cb = p[binning.P_CB : binning.P_CB + 1, :]
-        cc = p[binning.P_CC : binning.P_CC + 1, :]
-        opac = p[binning.P_OPAC : binning.P_OPAC + 1, :]
-        rad = p[binning.P_RADIUS : binning.P_RADIUS + 1, :]
-        obj = p[binning.P_OBJ : binning.P_OBJ + 1, :]
-        depth = p[binning.P_DEPTH : binning.P_DEPTH + 1, :]
-        rgb = p[binning.P_R : binning.P_B + 1, :]
-    return mx, my, ca, cb, cc, opac, rad, obj, rgb, depth
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
-def _make_cumsum_lanes(w_lanes: int, block: int = 128):
-    """Inclusive cumsum along lanes as BLOCKED triangular MXU matmuls.
-
-    Mosaic has no cumsum lowering; a single [W, W] triangular matmul
-    costs PX*W^2 MACs.  Splitting the lane axis into 128-wide blocks
-    (per-block [128, 128] triangle + running block offsets) costs
-    PX*W*128 — a 3x FLOP cut at W=384, on the kernel's dominant op.
-    """
-    rr = jax.lax.broadcasted_iota(jnp.int32, (block, block), 0)
-    cc = jax.lax.broadcasted_iota(jnp.int32, (block, block), 1)
-    tri = (rr <= cc).astype(jnp.float32)  # U[c, j] = 1 iff c <= j
-    n_blocks = w_lanes // block
-    assert n_blocks * block == w_lanes
-
-    def cumsum_lanes(x):  # [PX, W]
-        parts = []
-        offset = jnp.zeros((x.shape[0], 1), jnp.float32)
-        for b in range(n_blocks):
-            seg = x[:, b * block : (b + 1) * block]
-            cs = jax.lax.dot(seg, tri, preferred_element_type=jnp.float32)
-            parts.append(cs + offset)
-            offset = offset + cs[:, block - 1 : block]
-        return jnp.concatenate(parts, axis=1)
-
-    return cumsum_lanes
+def out_channels(max_objects: int) -> int:
+    """Padded per-pixel output width: 5+3K+2 rounded up to a power of two
+    (and at least 16, the smallest operand width of a Triton product)."""
+    return max(16, _next_pow2(5 + 3 * max_objects + 2))
 
 
 def _composite_kernel(
-    # scalar prefetch
     start_ref,  # [n_tiles] i32: first entry of each tile's segment
     count_ref,  # [n_tiles] i32: entry count of each tile
-    # inputs
-    params_hbm,  # [ROWS, M_pad] f32, memory_space=ANY
-    # outputs
-    out_ref,  # [1, PX, F_OUT] f32 VMEM block
-    # scratch
-    buf_ref,  # [2, ROWS, W] f32 VMEM
-    sem_ref,  # DMA semaphores (2,)
+    params_ref,  # [PARAM_DIM, M_pad] f32
+    out_ref,  # [PX, F_OUT] f32 block of this tile
     *,
     tile: int,
     ntx: int,
     chunk: int,
     max_objects: int,
-    packed8: bool,
 ):
     i = pl.program_id(0)
     start = start_ref[i]
     count = count_ref[i]
-    base = (start // _ALIGN) * _ALIGN
-    off = start - base
     px_n = tile * tile
     k = max_objects
-    w_lanes = chunk + _ALIGN
+    f_out = out_ref.shape[-1]
 
-    # pixel centers of this tile: linear index l = y_in * tile + x_in
-    ty = i // ntx
-    tx = i % ntx
     lin = jax.lax.broadcasted_iota(jnp.int32, (px_n, 1), 0)
-    pxs = (lin % tile + tx * tile).astype(jnp.float32)
-    pys = (lin // tile + ty * tile).astype(jnp.float32)
-
-    n_chunks = (count + chunk - 1) // chunk
-    cumsum_lanes = _make_cumsum_lanes(w_lanes)
-
-    def get_dma(slot, c_i):
-        return pltpu.make_async_copy(
-            params_hbm.at[:, pl.ds(base + c_i * chunk, w_lanes)],
-            buf_ref.at[slot],
-            sem_ref.at[slot],
-        )
-
-    @pl.when(n_chunks > 0)
-    def _():
-        get_dma(0, 0).start()
+    pxs = (lin % tile + (i % ntx) * tile).astype(jnp.float32)  # [PX, 1]
+    pys = (lin // tile + (i // ntx) * tile).astype(jnp.float32)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (chunk,), 0)
+    # feature column c of entry e: which output channel entry e feeds
+    col = jax.lax.broadcasted_iota(jnp.int32, (chunk, f_out), 1)
+    col_f = col.astype(jnp.float32)
 
     def body(c_i, carry):
-        t_full, t_ne, acc, amodal_log = carry
-        slot = c_i % 2
+        t_full, t_ne, acc = carry
+        off = c_i * chunk
+        ok = off + lane < count
 
-        @pl.when(c_i + 1 < n_chunks)
-        def _():
-            get_dma((c_i + 1) % 2, c_i + 1).start()
+        def load(r):  # [chunk] parameter row r of this chunk's entries
+            return plgpu.load(
+                params_ref.at[r, pl.ds(start + off, chunk)],
+                mask=ok, other=0.0,
+            )
 
-        get_dma(slot, c_i).wait()
-        p = buf_ref[slot]  # [16, W]: rows are parameter fields
+        def row(r):  # as a row [1, chunk], broadcast against pixels
+            return load(r)[None, :]
 
-        # window lane w holds global entry base + c_i*chunk + w; it belongs
-        # to this chunk iff w in [off, off+chunk) and its segment-relative
-        # index e = c_i*chunk + (w - off) is < count.
-        w_ids = jax.lax.broadcasted_iota(jnp.int32, (1, w_lanes), 1)
-        entry_ok = (
-            (w_ids >= off)
-            & (w_ids < off + chunk)
-            & (c_i * chunk + (w_ids - off) < count)
-        )
+        mx, my = row(binning.P_MX), row(binning.P_MY)
+        ca, cb, cc = row(binning.P_CA), row(binning.P_CB), row(binning.P_CC)
+        opac, rad = row(binning.P_OPAC), row(binning.P_RADIUS)
+        obj_v = load(binning.P_OBJ)
 
-        mx, my, ca, cb, cc, opac, rad, obj, rgb, depth = _window_fields(
-            p, packed8
-        )
-        is_env = obj < 0.5
-
-        dx = pxs - mx  # [PX, W]
+        dx = pxs - mx  # [PX, chunk]
         dy = pys - my
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
         alpha = jnp.minimum(opac * jnp.exp(jnp.minimum(power, 0.0)), 0.99)
@@ -194,85 +112,65 @@ def _composite_kernel(
             & (alpha >= 1.0 / 255.0)
             & (jnp.abs(dx) <= rad)
             & (jnp.abs(dy) <= rad)
-            & entry_ok
+            & ok[None, :]
         )
         alphas = jnp.where(keep, alpha, 0.0)
+        log1m = jnp.log1p(-alphas)
+        excl = jnp.exp(jnp.cumsum(log1m, axis=1) - log1m)
+        w_full = alphas * excl * t_full
 
-        # transposed feature matrix [F, W]: rgb, depth, 1, onehot(K)
-        kl = jax.lax.broadcasted_iota(jnp.int32, (k, w_lanes), 0).astype(
-            jnp.float32
+        is_env = obj_v[None, :] < 0.5  # [1, chunk]
+        alphas_ne = jnp.where(is_env, 0.0, alphas)
+        log1m_ne = jnp.where(is_env, 0.0, log1m)
+        excl_ne = jnp.exp(jnp.cumsum(log1m_ne, axis=1) - log1m_ne)
+        w_ne = alphas_ne * excl_ne * t_ne
+
+        # [chunk, F_OUT] feature matrices, one per weight kind: each puts
+        # its entries' values in the output columns that kind feeds
+        # ids >= K share channel K-1, as in the golden renderer
+        obj_c = jnp.minimum(obj_v, float(k - 1))[:, None]
+
+        def onehot_at(base):
+            return jnp.where(jnp.abs(col_f - base - obj_c) < 0.5, 1.0, 0.0)
+
+        def at(c, r):  # parameter row r in column c
+            return jnp.where(col == c, load(r)[:, None], 0.0)
+
+        feat_full = (
+            at(0, binning.P_R) + at(1, binning.P_G)
+            + at(2, binning.P_B) + at(3, binning.P_DEPTH)
+            + jnp.where(col == 4, 1.0, 0.0) + onehot_at(5.0)
         )
-        onehot_t = (jnp.abs(kl - obj) < 0.5).astype(jnp.float32)  # [K, W]
-        feat_t = jnp.concatenate(
-            [
-                rgb,  # [3, W]
-                depth,
-                jnp.ones((1, w_lanes), jnp.float32),
-                onehot_t,
-            ],
-            axis=0,
-        )  # [5 + K, W]
 
-        def dot_t(w, f_t):  # w [PX, W] x f_t [F, W] -> [PX, F]
-            return jax.lax.dot_general(
-                w, f_t,
-                dimension_numbers=(((1,), (1,)), ((), ())),
+        def dot(w, f):
+            return jax.lax.dot(
+                w, f, precision=Precision.HIGHEST,
                 preferred_element_type=jnp.float32,
             )
 
-        log1m = jnp.log1p(-alphas)
-        excl = jnp.exp(cumsum_lanes(log1m) - log1m)
-        w_full = alphas * excl * t_full  # [PX, W]
-        acc_full = dot_t(w_full, feat_t)  # [PX, 5+K]
-        new_t_full = t_full * jnp.exp(jnp.sum(log1m, axis=1, keepdims=True))
-
-        # object-mask channels: most tiles of a typical scene see only
-        # environment splats — skip the second compositing pass entirely
-        # for chunks with no object entries (data-dependent scf.if)
-        has_obj = jnp.any((~is_env) & entry_ok & (alphas > 0.0))
-
-        def with_objects(_):
-            # log1p(-where(env, 0, a)) == where(env, 0, log1p(-a)):
-            # reuse the full pass's log1m instead of a second log1p
-            alphas_ne = jnp.where(is_env, 0.0, alphas)
-            log1m_ne = jnp.where(is_env, 0.0, log1m)
-            excl_ne = jnp.exp(cumsum_lanes(log1m_ne) - log1m_ne)
-            w_ne = alphas_ne * excl_ne * t_ne
-            acc_ne = dot_t(w_ne, onehot_t)  # [PX, K]
-            new_t_ne = t_ne * jnp.exp(
-                jnp.sum(log1m_ne, axis=1, keepdims=True)
-            )
-            d_amodal = dot_t(log1m, onehot_t)
-            return acc_ne, new_t_ne, d_amodal
-
-        def env_only(_):
-            # channel 0 (environment) of the amodal accumulator still needs
-            # this chunk's env contributions; one narrow dot covers it
-            # (onehot row 0 IS the env indicator: object_id == 0, and
-            # masked lanes contribute 0 via log1m)
-            d_env = dot_t(log1m, onehot_t[0:1, :])  # [PX, 1]
-            return (
-                jnp.zeros((px_n, k), jnp.float32),
-                t_ne,
-                jnp.pad(d_env, ((0, 0), (0, k - 1))),
-            )
-
-        acc_ne, new_t_ne, d_amodal = jax.lax.cond(
-            has_obj, with_objects, env_only, None
+        acc = (
+            acc
+            + dot(w_full, feat_full)
+            + dot(w_ne, onehot_at(5.0 + k))
+            + dot(log1m, onehot_at(5.0 + 2 * k))
         )
-
-        acc = acc + jnp.concatenate([acc_full, acc_ne], axis=1)
-        return (new_t_full, new_t_ne, acc, amodal_log + d_amodal)
+        t_full = t_full * jnp.exp(jnp.sum(log1m, axis=1, keepdims=True))
+        t_ne = t_ne * jnp.exp(jnp.sum(log1m_ne, axis=1, keepdims=True))
+        return t_full, t_ne, acc
 
     init = (
         jnp.ones((px_n, 1), jnp.float32),
         jnp.ones((px_n, 1), jnp.float32),
-        jnp.zeros((px_n, 5 + 2 * k), jnp.float32),
-        jnp.zeros((px_n, k), jnp.float32),
+        jnp.zeros((px_n, f_out), jnp.float32),
     )
-    t_full, t_ne, acc, amodal_log = jax.lax.fori_loop(0, n_chunks, body, init)
-
-    out_ref[0] = jnp.concatenate([acc, amodal_log, t_full, t_ne], axis=1)
+    n_chunks = (count + chunk - 1) // chunk
+    t_full, t_ne, acc = jax.lax.fori_loop(0, n_chunks, body, init)
+    out_col = jax.lax.broadcasted_iota(jnp.int32, (px_n, f_out), 1)
+    out_ref[...] = (
+        acc
+        + jnp.where(out_col == 5 + 3 * k, t_full, 0.0)
+        + jnp.where(out_col == 5 + 3 * k + 1, t_ne, 0.0)
+    )
 
 
 def composite_tiles_pallas(
@@ -281,76 +179,35 @@ def composite_tiles_pallas(
     height: int,
     background: jnp.ndarray,
     max_objects: int = 8,
-    chunk: int = 256,
+    chunk: int = DEFAULT_CHUNK,
     interpret: bool = False,
-    tiles_per_program: int = 1,
-    packed8: bool = False,
 ) -> RenderOutputs:
+    """Composite binned entries.  ``bins.params_t`` must carry at least
+    ``chunk`` lanes of padding past the last entry (``lane_pad >= chunk``),
+    so every chunk's row loads stay in bounds."""
+    if chunk < 16 or chunk & (chunk - 1):
+        raise ValueError(f"chunk must be a power of two >= 16, got {chunk}")
     tile = bins.tile
     ntx, nty = bins.n_tiles_x, bins.n_tiles_y
     n_tiles = ntx * nty
     px_n = tile * tile
     k = max_objects
-    f_out = 5 + 3 * k + 2
-    w_lanes = chunk + _ALIGN
+    f_out = out_channels(k)
 
-    rows = binning.PACKED8_DIM if packed8 else binning.PARAM_DIM
-    scratch = [
-        pltpu.VMEM((2, rows, w_lanes), jnp.float32),
-        pltpu.SemaphoreType.DMA((2,)),
-    ]
-    if tiles_per_program == 1:
-        kernel = functools.partial(
-            _composite_kernel,
-            tile=tile, ntx=ntx, chunk=chunk, max_objects=max_objects,
-            packed8=packed8,
-        )
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-            out_specs=pl.BlockSpec(
-                (1, px_n, f_out), lambda i, *_: (i, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            scratch_shapes=scratch,
-        )
-        out = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((n_tiles, px_n, f_out), jnp.float32),
-            interpret=interpret,
-        )(bins.tile_start, bins.tile_count, bins.params_t)
-    else:
-        t_per = tiles_per_program
-        n_prog = -(-n_tiles // t_per)
-        pad_t = n_prog * t_per - n_tiles
-        starts = jnp.pad(bins.tile_start, (0, pad_t))
-        counts = jnp.pad(bins.tile_count, (0, pad_t))
-        kernel = functools.partial(
-            _composite_kernel_mt,
-            tile=tile, ntx=ntx, chunk=chunk, max_objects=max_objects,
-            tiles_per_program=t_per, packed8=packed8,
-        )
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(n_prog,),
-            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-            out_specs=pl.BlockSpec(
-                (1, t_per, px_n, f_out), lambda i, *_: (i, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            scratch_shapes=scratch,
-        )
-        out4 = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct(
-                (n_prog, t_per, px_n, f_out), jnp.float32
-            ),
-            interpret=interpret,
-        )(starts, counts, bins.params_t)
-        out = out4.reshape(n_prog * t_per, px_n, f_out)[:n_tiles]
+    kernel = functools.partial(
+        _composite_kernel, tile=tile, ntx=ntx, chunk=chunk, max_objects=k,
+    )
+    out = pl.pallas_call(
+        kernel,
+        grid=(n_tiles,),
+        out_specs=pl.BlockSpec((None, px_n, f_out), lambda i: (i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((n_tiles, px_n, f_out), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name="composite_tiles",
+    )(bins.tile_start, bins.tile_count, bins.params_t)
 
     background = jnp.asarray(background, jnp.float32)
 
@@ -387,9 +244,19 @@ def rasterize_pallas(
     background=(0.0, 0.0, 0.0),
     sh_degree: int | None = None,
     scaling_modifier: float = 1.0,
-    max_objects: int = 8,
-    tile: int = 16,
-    chunk: int = 512,
+    **kwargs,
+) -> RenderOutputs:
+    """Drop-in alternative to rasterize_reference (same RenderOutputs);
+    ``kwargs`` as for rasterize_projected_pallas."""
+    proj = project_gaussians(cloud, cam, sh_degree, scaling_modifier)
+    return rasterize_projected_pallas(
+        proj, cam.width, cam.height, jnp.asarray(background, jnp.float32),
+        **kwargs,
+    )
+
+
+def binning_defaults(
+    num_splats: int,
     a_small: int | None = None,
     big_budget: int | None = None,
     a_big: int | None = None,
@@ -397,103 +264,66 @@ def rasterize_pallas(
     a_mid: int = 4,
     adaptive_mid: bool | None = None,
     entry_cap: int | None = None,
-    interpret: bool = False,
-    tiles_per_program: int = 4,
-    pack_params: bool | None = None,
-) -> RenderOutputs:
-    """Drop-in alternative to rasterize_reference (same RenderOutputs).
+) -> dict:
+    """bin_splats budgets for a scene of ``num_splats`` (None = default).
 
-    pack_params=True bins into the 8-row PACKED8 layout (binning.py):
-    the entry gather is the frame's largest single stage at 1M splats
-    and its cost tracks table row bytes, so quantizing color to 10-bit /
-    opacity to 14-bit fixed-point (~66 dB measured parity vs the f32
-    layout, far above the 40 dB gate; radius/object ids pack exactly)
-    cuts it and halves the kernel's DMA stream.  Default (None) enables
-    it only past MEDIUM_SCENE_SPLATS, where the gather dominates:
-    measured on v5e 1M: 32.9 -> 36.7 fps; 210k: 81.7 -> 80.6 (small
-    scenes lose slightly to the unpack ALU, so they keep f32 rows).
-    Differentiable use goes through ops/pallas_vjp.py, which keeps the
-    16-row f32 layout.
-
-    Binning budgets default by SPLAT COUNT (static at trace time): the
-    sort length is num_splats * a_small + big_budget * a_big, and at
-    ~1M splats most splats are subpixel (1-2 tiles), so large scenes
-    trade per-splat slots for a bigger compacted budget — measured
-    12.6 -> ~18 fps at 1M splats on v5e with parity held >40 dB.
-
-    chunk=512 / tiles_per_program=4 swept best on v5e at both scales
-    (210k: 77.9 -> 87.4 fps; 1M: 31.0 -> 34.1; every (chunk, tpp) in
-    {256,512}x{1,2,4} held parity bit-identically): wider windows
-    amortize DMA latency and multi-tile programs hide the next tile's
-    first-window fetch under the previous tile's tail.
+    Budgets default by SPLAT COUNT (static at trace time): the sort
+    length is num_splats * a_small + big_budget * a_big, and at ~1M
+    splats most splats are subpixel (1-2 tiles), so large scenes trade
+    per-splat slots for a bigger compacted budget.  These defaults decide
+    which entries exist, and so what is drawn; the parity gate holds them
+    above 40 dB at 210k and 1M splats.
     """
-    if pack_params is None:
-        pack_params = cloud.num_splats > MEDIUM_SCENE_SPLATS
     if a_small is None:
-        a_small = 2 if cloud.num_splats > LARGE_SCENE_SPLATS else 4
+        a_small = 2 if num_splats > LARGE_SCENE_SPLATS else 4
     if big_budget is None:
-        big_budget = 32768 if cloud.num_splats > LARGE_SCENE_SPLATS else 16384
+        big_budget = 32768 if num_splats > LARGE_SCENE_SPLATS else 16384
     if mid_budget is None:
         # footprint-stratified middle bucket (large scenes only): at 1M
         # splats a grazing view puts ~245k splats at a 2x2 footprint —
         # 7x big_budget — and the a_small=2 core clips half their tiles
-        # (measured grazing-view parity 36.8 dB vs the golden renderer;
-        # the 40 dB gate regime needs their full bbox).  262144 a_mid=4
-        # slots cover them at 1/4 the slot cost of a_small=4 for all:
-        # sort 2.26M -> 3.31M instead of 4.26M.  Measured v5e 1M bench:
-        # 32.4 fps at 57.5 dB orbit / 48.2 dB grazing parity (vs 35.6
-        # fps at 46.2 / 36.8 without the mid bucket — the grazing view
-        # was under the gate).  Winner fields ride the compaction sort
-        # as packed payloads (binning.py) — gathering them at mid-bucket
-        # index counts measured 33 ms/frame.  a_mid=4 is load-bearing:
-        # swept a_mid in {2,3,4} on v5e — 3 and 2 trade +0.7/+1.9 fps
-        # for grazing parity collapsing to 36.85 dB (a 2x2 footprint
-        # trips the oversize clamp at a_b<4 and the isqrt-width clamped
-        # window cannot cover the bbox-minus-core remainder).
-        mid_budget = 262144 if cloud.num_splats > LARGE_SCENE_SPLATS else 0
+        # (grazing-view parity fell to 36.8 dB vs the golden renderer
+        # without it).  262144 a_mid=4 slots cover them at 1/4 the slot
+        # cost of a_small=4 for all: sort 2.26M -> 3.31M instead of
+        # 4.26M.  a_mid=4 is load-bearing: at 3 or 2 a 2x2 footprint
+        # trips the oversize clamp and the isqrt-width clamped window
+        # cannot cover the bbox-minus-core remainder (grazing parity
+        # 36.85 dB).
+        mid_budget = 262144 if num_splats > LARGE_SCENE_SPLATS else 0
     if a_big is None:
-        # swept on v5e (640x480 bench scenes, parity vs golden): the big
-        # bucket's slot grid is ~95% dead at a_big=36 (210k scene: 28k
-        # live extras in 590k slots), and shrinking it cuts the dominant
-        # sort+gather length.  a_big=12 at 210k: 69.6 -> 77.9 fps with
-        # IDENTICAL 59.35 dB far-view parity (a_big=8 dips parity);
-        # a_big=8 at 1M: 30.7 -> 31.2 fps at the same 46.2 dB.  Cost is
-        # paid only at unusually close viewpoints (large footprints
-        # clamp at a_small + a_big tiles: near-view parity 32.6 -> 31.7
-        # dB at 210k — already below the 40 dB regime at a_big=36;
-        # pass a_big=36, big_budget=32768 explicitly for closeups).
-        a_big = 8 if cloud.num_splats > LARGE_SCENE_SPLATS else 12
-    if entry_cap is None and cloud.num_splats > LARGE_SCENE_SPLATS:
+        # the big bucket's slot grid is ~95% dead at a_big=36 (210k scene:
+        # 28k live extras in 590k slots); a_big=12 at 210k and 8 at 1M
+        # hold the far-view parity of a_big=36 (a_big=8 dips it at 210k).
+        # Large footprints clamp at a_small + a_big tiles, so unusually
+        # close viewpoints lose parity (near view ~31.7 dB at 210k); pass
+        # a_big=36, big_budget=32768 explicitly for closeups.
+        a_big = 8 if num_splats > LARGE_SCENE_SPLATS else 12
+    if entry_cap is None and num_splats > LARGE_SCENE_SPLATS:
         # with the mid bucket the live entry count is the splats' true
-        # clipped-bbox coverage: measured 1.63N at the 1M bench orbit
-        # view, 1.65N at the grazing view (vs 1.34N when a_small=2
-        # clipped it).  1.8N truncates only dead sentinel slots at both.
-        # The margin is NOT universal: a far view that keeps the whole
-        # scene onscreen measured live > 1.8N and overflowed
-        # (benchmarks/adaptive_mid_1m.json "distant") — which is why the
-        # generation paths surface TileBins.overflow per frame
+        # clipped-bbox coverage: 1.63N at the 1M bench orbit view, 1.65N
+        # at the grazing view.  1.8N truncates only dead sentinel slots at
+        # both.  The margin is NOT universal: a far view that keeps the
+        # whole scene onscreen exceeds 1.8N and overflows — which is why
+        # the generation paths surface TileBins.overflow per frame
         # (binning_overflow_frames in scene stats + warning) instead of
-        # trusting the cap; bench additionally parity-gates 1M every
-        # round (orbit AND grazing).  Callers hitting the warning pass a
-        # larger entry_cap explicitly and pay the gather cost only then.
-        entry_cap = int(1.8 * cloud.num_splats)
-    elif entry_cap is None and cloud.num_splats > MEDIUM_SCENE_SPLATS:
+        # trusting the cap.  Callers hitting the warning pass a larger
+        # entry_cap explicitly.
+        entry_cap = int(1.8 * num_splats)
+    elif entry_cap is None and num_splats > MEDIUM_SCENE_SPLATS:
         # mid-size tier (300k < N <= 500k, a_small=4): live entries
-        # measured 2.8N at 500k; 3.2N held full 58.1 dB parity at
-        # +24% fps.
-        entry_cap = int(3.2 * cloud.num_splats)
-    elif entry_cap is None and cloud.num_splats > SMALL_SCENE_SPLATS:
-        # 150k < N <= 300k: bench scene at 210k measures live 2.7N of
+        # reach 2.8N at 500k; 3.2N holds full parity.
+        entry_cap = int(3.2 * num_splats)
+    elif entry_cap is None and num_splats > SMALL_SCENE_SPLATS:
+        # 150k < N <= 300k: the bench scene at 210k has live 2.7N of
         # 4.94N slots (2.0N at a near viewpoint — footprints grow but
         # fewer splats stay onscreen), so 3.4N truncates only dead
-        # sentinel slots and cuts the gather ~31%; the live prefix is
-        # identical, so output is bit-identical by construction.  NOT
-        # applied below 150k — small
-        # scenes have larger per-splat footprints (live ~4.5N measured
-        # at 100k, where a 3.2N cap collapsed parity to 15.6 dB).
-        entry_cap = int(3.4 * cloud.num_splats)
-    big_budget_eff = min(big_budget, cloud.num_splats)
-    mid_budget_eff = min(mid_budget, max(cloud.num_splats - big_budget, 0))
+        # sentinel slots; the live prefix is identical, so output is
+        # bit-identical by construction.  NOT applied below 150k — small
+        # scenes have larger per-splat footprints (live ~4.5N at 100k,
+        # where a 3.2N cap collapsed parity to 15.6 dB).
+        entry_cap = int(3.4 * num_splats)
+    big_budget_eff = min(big_budget, num_splats)
+    mid_budget_eff = min(mid_budget, max(num_splats - big_budget, 0))
     if adaptive_mid is None:
         # per-frame conditional mid bucket: the mid bucket only ADDS
         # coverage when > big_budget splats exceed the a_small core
@@ -505,212 +335,33 @@ def rasterize_pallas(
             mid_budget_eff > 0
             and entry_cap is not None
             and entry_cap
-            < a_small * cloud.num_splats + a_big * big_budget_eff
+            < a_small * num_splats + a_big * big_budget_eff
         )
-    proj = project_gaussians(cloud, cam, sh_degree, scaling_modifier)
+    return dict(
+        a_small=a_small, big_budget=big_budget_eff, a_big=a_big,
+        mid_budget=mid_budget_eff, a_mid=a_mid, adaptive_mid=adaptive_mid,
+        entry_cap=entry_cap,
+    )
+
+
+def rasterize_projected_pallas(
+    proj: ProjectedGaussians,
+    width: int,
+    height: int,
+    background: jnp.ndarray,
+    max_objects: int = 8,
+    tile: int = 16,
+    chunk: int = DEFAULT_CHUNK,
+    interpret: bool = False,
+    **budgets,
+) -> RenderOutputs:
+    """Bin (``budgets`` as for binning_defaults) and composite projected
+    splats."""
     bins = bin_splats(
-        proj, cam.width, cam.height, tile=tile,
-        a_small=a_small, big_budget=big_budget_eff,
-        a_big=a_big, lane_pad=chunk + 2 * _ALIGN, entry_cap=entry_cap,
-        mid_budget=mid_budget_eff,
-        a_mid=a_mid, adaptive_mid=adaptive_mid, pack8=pack_params,
+        proj, width, height, tile=tile, lane_pad=chunk,
+        **binning_defaults(proj.mean_x.shape[0], **budgets),
     )
     return composite_tiles_pallas(
-        bins,
-        cam.width,
-        cam.height,
-        jnp.asarray(background, jnp.float32),
-        max_objects=max_objects,
-        chunk=chunk,
-        interpret=interpret,
-        tiles_per_program=tiles_per_program,
-        packed8=pack_params,
-    )
-
-
-def _composite_kernel_mt(
-    # scalar prefetch
-    start_ref,  # [n_tiles_pad] i32
-    count_ref,  # [n_tiles_pad] i32
-    # inputs
-    params_hbm,  # [ROWS, M_pad] f32, memory_space=ANY
-    # outputs
-    out_ref,  # [T_PER, PX, F_OUT] f32 VMEM block
-    # scratch
-    buf_ref,  # [2, ROWS, W] f32 VMEM
-    sem_ref,  # DMA semaphores (2,)
-    *,
-    tile: int,
-    ntx: int,
-    chunk: int,
-    max_objects: int,
-    tiles_per_program: int,
-    packed8: bool,
-):
-    """Multi-tile variant: one program composites `tiles_per_program`
-    consecutive tiles with a single software-pipelined DMA stream, so the
-    first-chunk DMA latency of tile t+1 hides under tile t's last chunk
-    (the single-tile kernel pays it per program)."""
-    p_id = pl.program_id(0)
-    t_per = tiles_per_program
-    base_tile = p_id * t_per
-    px_n = tile * tile
-    k = max_objects
-
-    w_lanes = chunk + _ALIGN
-    cumsum_lanes = _make_cumsum_lanes(w_lanes)
-
-    def tile_scalars(t_local):
-        t_global = base_tile + t_local
-        start = start_ref[t_global]
-        count = count_ref[t_global]
-        # every tile takes >= 1 step so its output slot is always written
-        n_chunks = jnp.maximum((count + chunk - 1) // chunk, 1)
-        return start, count, n_chunks
-
-    def dma_for(t_local, c_i, slot):
-        start, _, _ = tile_scalars(t_local)
-        base = (start // _ALIGN) * _ALIGN
-        return pltpu.make_async_copy(
-            params_hbm.at[:, pl.ds(base + c_i * chunk, w_lanes)],
-            buf_ref.at[slot],
-            sem_ref.at[slot],
-        )
-
-    total_steps = jnp.int32(0)
-    for t in range(t_per):
-        total_steps = total_steps + tile_scalars(t)[2]
-
-    dma_for(0, 0, 0).start()
-
-    lin = jax.lax.broadcasted_iota(jnp.int32, (px_n, 1), 0)
-    kl = jax.lax.broadcasted_iota(jnp.int32, (k, w_lanes), 0).astype(jnp.float32)
-    w_ids = jax.lax.broadcasted_iota(jnp.int32, (1, w_lanes), 1)
-
-    init_acc = (
-        jnp.ones((px_n, 1), jnp.float32),
-        jnp.ones((px_n, 1), jnp.float32),
-        jnp.zeros((px_n, 5 + 2 * k), jnp.float32),
-        jnp.zeros((px_n, k), jnp.float32),
-    )
-
-    def body(g, carry):
-        t_local, c_i, t_full, t_ne, acc, amodal_log = carry
-        start, count, n_chunks = tile_scalars(t_local)
-        is_last = c_i + 1 >= n_chunks
-        slot = g % 2
-
-        # prefetch the NEXT step's window (next chunk or next tile's first)
-        nt = jnp.where(is_last, t_local + 1, t_local)
-        nc = jnp.where(is_last, 0, c_i + 1)
-
-        @pl.when(g + 1 < total_steps)
-        def _():
-            dma_for(nt, nc, (g + 1) % 2).start()
-
-        dma_for(t_local, c_i, slot).wait()
-        p = buf_ref[slot]  # [16, W]
-
-        t_global = base_tile + t_local
-        ty = t_global // ntx
-        tx = t_global % ntx
-        pxs = (lin % tile + tx * tile).astype(jnp.float32)
-        pys = (lin // tile + ty * tile).astype(jnp.float32)
-
-        base = (start // _ALIGN) * _ALIGN
-        off = start - base
-        entry_ok = (
-            (w_ids >= off)
-            & (w_ids < off + chunk)
-            & (c_i * chunk + (w_ids - off) < count)
-        )
-
-        mx, my, ca, cb, cc, opac, rad, obj, rgb, depth = _window_fields(
-            p, packed8
-        )
-        is_env = obj < 0.5
-
-        dx = pxs - mx
-        dy = pys - my
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        alpha = jnp.minimum(opac * jnp.exp(jnp.minimum(power, 0.0)), 0.99)
-        keep = (
-            (power <= 0.0)
-            & (alpha >= 1.0 / 255.0)
-            & (jnp.abs(dx) <= rad)
-            & (jnp.abs(dy) <= rad)
-            & entry_ok
-        )
-        alphas = jnp.where(keep, alpha, 0.0)
-
-        onehot_t = (jnp.abs(kl - obj) < 0.5).astype(jnp.float32)
-        feat_t = jnp.concatenate(
-            [
-                rgb,
-                depth,
-                jnp.ones((1, w_lanes), jnp.float32),
-                onehot_t,
-            ],
-            axis=0,
-        )
-
-        def dot_t(w, f_t):
-            return jax.lax.dot_general(
-                w, f_t,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-
-        log1m = jnp.log1p(-alphas)
-        excl = jnp.exp(cumsum_lanes(log1m) - log1m)
-        w_full = alphas * excl * t_full
-        acc_full = dot_t(w_full, feat_t)
-        new_t_full = t_full * jnp.exp(jnp.sum(log1m, axis=1, keepdims=True))
-
-        has_obj = jnp.any((~is_env) & entry_ok & (alphas > 0.0))
-
-        def with_objects(_):
-            # log1p(-where(env, 0, a)) == where(env, 0, log1p(-a)):
-            # reuse the full pass's log1m instead of a second log1p
-            alphas_ne = jnp.where(is_env, 0.0, alphas)
-            log1m_ne = jnp.where(is_env, 0.0, log1m)
-            excl_ne = jnp.exp(cumsum_lanes(log1m_ne) - log1m_ne)
-            w_ne = alphas_ne * excl_ne * t_ne
-            return (
-                dot_t(w_ne, onehot_t),
-                t_ne * jnp.exp(jnp.sum(log1m_ne, axis=1, keepdims=True)),
-                dot_t(log1m, onehot_t),
-            )
-
-        def env_only(_):
-            # onehot row 0 is the env indicator; masked lanes drop via log1m
-            d_env = dot_t(log1m, onehot_t[0:1, :])
-            return (
-                jnp.zeros((px_n, k), jnp.float32),
-                t_ne,
-                jnp.pad(d_env, ((0, 0), (0, k - 1))),
-            )
-
-        acc_ne, new_t_ne, d_amodal = jax.lax.cond(
-            has_obj, with_objects, env_only, None
-        )
-
-        acc = acc + jnp.concatenate([acc_full, acc_ne], axis=1)
-        amodal_log = amodal_log + d_amodal
-
-        @pl.when(is_last)
-        def _():
-            out_ref[0, pl.ds(t_local, 1)] = jnp.concatenate(
-                [acc, amodal_log, new_t_full, new_t_ne], axis=1
-            )[None]
-
-        # reset accumulators at tile boundaries
-        t_full2 = jnp.where(is_last, init_acc[0], new_t_full)
-        t_ne2 = jnp.where(is_last, init_acc[1], new_t_ne)
-        acc2 = jnp.where(is_last, init_acc[2], acc)
-        amodal2 = jnp.where(is_last, init_acc[3], amodal_log)
-        return (nt, nc, t_full2, t_ne2, acc2, amodal2)
-
-    jax.lax.fori_loop(
-        0, total_steps, body, (jnp.int32(0), jnp.int32(0)) + init_acc
+        bins, width, height, background, max_objects=max_objects,
+        chunk=chunk, interpret=interpret,
     )

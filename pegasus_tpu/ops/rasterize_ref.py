@@ -11,8 +11,8 @@ and decodes masks by color-distance thresholding (src/gs/render.py:62-63,
 Front-to-back compositing is reformulated as a scan over depth-ordered
 splat chunks with an exclusive cumulative product of (1 - alpha) inside the
 chunk — a fully vectorized, associative form of the CUDA loop that XLA maps
-onto the VPU/MXU.  This file favors clarity over speed; it is the parity
-oracle for the tiled/Pallas backends and remains the fallback on CPU.
+onto elementwise kernels and matrix products.  This file favors clarity
+over speed; it is the parity oracle for the tiled/Pallas backends.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ class RenderOutputs(NamedTuple):
     # scalar bool: True when an entry-capped binning truncated LIVE entries
     # (bottom-right tiles silently lose far splats; raise entry_cap).  The
     # golden/tiled backends never truncate and always report False.
-    overflow: jnp.ndarray = jnp.asarray(False)
+    overflow: jnp.ndarray = False
 
 
 def _pixel_grid(width: int, height: int):

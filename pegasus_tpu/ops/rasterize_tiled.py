@@ -1,7 +1,8 @@
 """Tiled rasterizer: XLA backend over shared tile bins.
 
-Portable fast path (CPU/TPU; the Pallas backend in rasterize_pallas.py is
-the TPU speed-of-light path).  Consumes the depth-ordered per-tile entry
+The CPU compositor and the differentiable training path (the Pallas
+kernel in rasterize_pallas.py is the GPU compositor).  Consumes the
+depth-ordered per-tile entry
 lists built by ops/binning.py, pads each tile's segment to a static budget
 and composites with dense [n_tiles, px, chunk] vector math + batched
 matmuls.  Semantics are pinned to the golden renderer
@@ -174,10 +175,16 @@ def rasterize_projected_tiled(
     a_small: int = 4,
     big_budget: int = 16384,
     a_big: int = 36,
+    abs_grad_sink: jnp.ndarray | None = None,
 ) -> RenderOutputs:
+    """``abs_grad_sink`` ([N, 2] zeros) routes the entry gather through
+    the binning's structure-aware VJP, whose cotangent w.r.t. the sink is
+    the per-splat sum of |per-entry mean2d cotangents| (AbsGS)."""
     bins = bin_splats(
         proj, width, height, tile=tile,
         a_small=a_small, big_budget=big_budget, a_big=a_big, lane_pad=128,
+        with_entry_origin=abs_grad_sink is not None,
+        abs_grad_sink=abs_grad_sink,
     )
     return composite_tiles_xla(
         bins, width, height, background,

@@ -35,13 +35,12 @@ def compare_backends(
 ) -> dict:
     """Render `scene` with the golden compositor and the chosen fast
     backend; return per-channel PSNR and mask agreement."""
-    import jax
-
+    from pegasus_tpu.ops.backends import default_rasterize_fn
     from pegasus_tpu.ops.rasterize_ref import rasterize_reference
 
     if backend == "auto":
-        backend = "pallas" if jax.default_backend() != "cpu" else "tiled"
-    if backend == "pallas":
+        fast = default_rasterize_fn()
+    elif backend == "pallas":
         from pegasus_tpu.ops.rasterize_pallas import rasterize_pallas as fast
     elif backend == "tiled":
         from pegasus_tpu.ops.rasterize_tiled import rasterize_tiled as fast
@@ -58,7 +57,7 @@ def compare_backends(
 
     depth_peak = max(float(np.asarray(ref.depth).max()), 1e-6)
     report = {
-        "backend": backend,
+        "backend": fast.__name__,
         "rgb_psnr_db": psnr_db(ref.rgb, out.rgb),
         "depth_psnr_db": psnr_db(ref.depth, out.depth, peak=depth_peak),
         "alpha_max_err": float(

@@ -39,6 +39,7 @@ from pegasus_tpu.gs.ply import load_gs_ply
 from pegasus_tpu.io import colmap as colmap_io
 from pegasus_tpu.io.bop_writer import BOPDatasetWriter, write_models
 from pegasus_tpu.io.mesh import load_mesh
+from pegasus_tpu.ops.backends import default_rasterize_fn
 from pegasus_tpu.ops.render import (encode_frame, pack_frame_bytes,
                                     render_frame, unpack_frame_bytes)
 from pegasus_tpu.parallel.mesh import make_mesh, shard_batch
@@ -181,8 +182,8 @@ def _make_batch_program(mesh, n_steps: int, rasterize_fn,
 
         if static_pose:
             # static scenes share one pose across all frames: pose ONCE
-            # above the scan (28.5 ms/frame at 210k splats otherwise —
-            # XLA cannot hoist it because `step` is a scanned input)
+            # above the scan (XLA cannot hoist it because `step` is a
+            # scanned input)
             body_R0, body_t0 = poses_from_trajectory_step(
                 times_t, times_q, frame_steps[0]
             )
@@ -245,14 +246,7 @@ def run_generation_sharded(
     # splat_budget (one static cloud size for every scene) is derived
     # from the preloaded assets below when the config leaves it unset
     if rasterize_fn is None:
-        if jax.default_backend() != "cpu":
-            from pegasus_tpu.ops.rasterize_pallas import rasterize_pallas
-
-            rasterize_fn = rasterize_pallas
-        else:
-            from pegasus_tpu.ops.rasterize_tiled import rasterize_tiled
-
-            rasterize_fn = rasterize_tiled
+        rasterize_fn = default_rasterize_fn()
 
     n_dev = int(np.prod(list(mesh.shape.values())))
     out_root = Path(config.dataset_base_path)

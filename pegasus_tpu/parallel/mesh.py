@@ -13,8 +13,10 @@ parallelism audit: no DP/TP/PP anywhere).  PEGASUS-TPU's scale-out axes:
     splat shards composite locally and reduce across the axis
     (parallel/sharded_render.py).
 
-Collectives ride the ICI mesh that ``jax.sharding.Mesh`` exposes; nothing
-here speaks NCCL/MPI (there is nothing to port — see SURVEY 2.2).
+The mesh is flat: every card of a host reaches every other over NVLink
+at the same rate, so mesh shapes follow the algorithm alone.  Collectives
+are XLA's (NCCL on GPUs); nothing here calls NCCL/MPI directly (there is
+nothing to port — see SURVEY 2.2).
 """
 
 from __future__ import annotations

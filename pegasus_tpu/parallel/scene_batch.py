@@ -4,7 +4,7 @@ One XLA program simulates V randomized scene variants (vmapped physics)
 and renders one frame per variant, with the variant axis sharded over the
 device mesh.  This is the production form of the throughput-scale config
 ("1000 scene variants, vmapped physics + batched tiled rasterization
-sharded across a v5e-8 slice") — the reference has no counterpart
+sharded across the devices") — the reference has no counterpart
 (strictly sequential scenes, SURVEY 2.2).
 
 Host I/O (BOP writing) consumes the returned arrays per variant; the
@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from pegasus_tpu.camera import Camera
+from pegasus_tpu.ops.backends import default_rasterize_fn
 from pegasus_tpu.ops.rasterize_tiled import rasterize_tiled
 from pegasus_tpu.ops.render import decode_modalities
 from pegasus_tpu.parallel.mesh import make_mesh, shard_batch
@@ -58,24 +59,18 @@ def generate_scene_variants(
     mesh: a 1-D 'scene' Mesh (default: all devices).  physics_params /
     template are replicated; the variant axis is sharded over the mesh
     with shard_map and iterated per device with lax.map, so the Pallas
-    compositor is usable (it has no vmap batching rule) — the default
-    backend on TPU; the XLA tiled backend is the CPU default.
+    compositor is usable (it has no vmap batching rule).  The compositor
+    defaults to the platform's (ops/backends.py).
     """
     if mesh is None:
         mesh = make_mesh(axis_names=("scene",))
     if rasterize_fn is None:
-        if jax.default_backend() != "cpu":
-            from pegasus_tpu.ops.rasterize_pallas import rasterize_pallas
-
-            rasterize_fn = rasterize_pallas
-            rasterize_kwargs = rasterize_kwargs or {}
-        else:
-            rasterize_fn = rasterize_tiled
-            rasterize_kwargs = rasterize_kwargs or dict(
-                max_per_tile=512, big_budget=2048
-            )
-    else:
-        rasterize_kwargs = rasterize_kwargs or {}
+        rasterize_fn = default_rasterize_fn()
+        if rasterize_fn is rasterize_tiled and rasterize_kwargs is None:
+            # variant scenes are small: tight tile budgets keep the dense
+            # tiled path cheap
+            rasterize_kwargs = dict(max_per_tile=512, big_budget=2048)
+    rasterize_kwargs = rasterize_kwargs or {}
     n_bodies = template.num_bodies
 
     keys = jax.random.split(jax.random.PRNGKey(seed), n_variants)
@@ -113,7 +108,7 @@ def generate_scene_variants(
 def _variant_program(mesh, n_steps, max_objects, rasterize_fn, kw_items):
     """Compiled program cache: repeated calls (different seeds/poses,
     same shapes) must NOT re-jit — the closure-per-call pattern cost a
-    full recompile (~80 s on TPU) per invocation."""
+    full recompile per invocation."""
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 

@@ -6,7 +6,7 @@ Front-to-back alpha compositing is associative under the 'over' operator:
 
 so a depth-sorted splat array split into contiguous shards composites
 locally per device and then reduces ACROSS devices in shard order — the
-tensor-parallel analog for scenes too large for one chip's HBM.
+tensor-parallel analog for scenes too large for one card's memory.
 
 This generalizes to every channel the renderer emits:
   * premultiplied accumulations (rgb, depth, alpha, seg, vis) combine as
@@ -16,7 +16,7 @@ This generalizes to every channel the renderer emits:
 
 Implementation: shard_map over the 'splat' mesh axis; each shard runs a
 selectable compositor backend on its slice — 'golden' (per-pixel oracle),
-'tiled' (XLA), or 'pallas' (the fused TPU kernel) — then the per-shard
+'tiled' (XLA), or 'pallas' (the GPU kernel) — then the per-shard
 frames reduce with an ORDERED BUTTERFLY: log2(n) ppermute exchanges of one
 shard-local payload each, where the lower-indexed half of every block is
 the 'near' operand.  Each step halves the number of distinct partial
@@ -59,7 +59,7 @@ def _local_render(backend, proj_shard, width, height, k, chunk, interpret):
             max_objects=k, chunk=chunk,
         )
     elif backend == "pallas":
-        from pegasus_tpu.ops.pallas_vjp import rasterize_projected_pallas
+        from pegasus_tpu.ops.rasterize_pallas import rasterize_projected_pallas
 
         out = rasterize_projected_pallas(
             proj_shard, width, height, jnp.zeros(3, jnp.float32),

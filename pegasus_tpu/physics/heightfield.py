@@ -5,7 +5,7 @@ plane at z=0, SURVEY 2.3.3) but carry real relief — cobblestones, manhole
 covers, grass.  Bullet collides against the full triangle mesh; here the
 env collision proxy is a regular heightfield baked once per asset: contact
 queries become a bilinear lookup + finite-difference normal, which is
-ideal vectorized TPU work (the physics inner loop stays pure elementwise).
+ideal vectorized work (the physics inner loop stays pure elementwise).
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """Vmapped rigid-body dynamics in pure JAX.
 
-TPU-native replacement for the reference's PyBullet drop simulation
+JAX replacement for the reference's PyBullet drop simulation
 (reference: src/engine/physical_simulation.py:98-170): drop rigid objects
 onto a ground-aligned environment, record per-step poses.  The reference
 steps Bullet's C++ LCP solver one scene at a time on the CPU; here the
 stepper is a pure function of static-shaped arrays, so `vmap` simulates
 hundreds of scene variants in parallel and `jax.sharding` spreads them
-over a chip mesh.
+over a device mesh.
 
 Model
 -----
@@ -34,16 +34,23 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from jax.lax import Precision
 
 from pegasus_tpu.physics.heightfield import Heightfield, height_at, normal_at
+from pegasus_tpu.utils import pytree
 from pegasus_tpu.utils import quaternion as quat
+
+# every contraction in float32: a GPU otherwise runs float32 products in
+# TF32, and 310 steps of contact resolution turn that into different rest
+# poses (centimetres and tens of degrees apart from the same drop on the
+# CPU); at HIGHEST the two agree to micrometres
+_einsum = partial(jnp.einsum, precision=Precision.HIGHEST)
 
 DEFAULT_GRAVITY = (0.0, 0.0, -50.0)
 DEFAULT_DT = 1.0 / 1000.0
 
 
-@struct.dataclass
+@pytree.dataclass
 class RigidBodyState:
     pos: jnp.ndarray  # [B, 3] world position of body origin
     rot: jnp.ndarray  # [B, 4] wxyz orientation
@@ -61,7 +68,7 @@ class RigidBodyState:
         )
 
 
-@struct.dataclass
+@pytree.dataclass
 class RigidBodyParams:
     inv_mass: jnp.ndarray  # [B] 0 for static bodies (environment)
     inv_inertia: jnp.ndarray  # [B, 3] inverse principal inertia (body frame)
@@ -79,7 +86,7 @@ class RigidBodyParams:
     edge_a: jnp.ndarray = None  # [B, E, 3] hull edge start points (body frame)
     edge_b: jnp.ndarray = None  # [B, E, 3] hull edge end points
     edge_mask: jnp.ndarray = None  # [B, E] bool
-    num_hull_parts: int = struct.field(pytree_node=False, default=1)
+    num_hull_parts: int = pytree.field(pytree_node=False, default=1)
 
     def __post_init__(self):
         if self.half_extents is None:
@@ -156,7 +163,7 @@ class RigidBodyParams:
 def _world_points(state: RigidBodyState, params: RigidBodyParams):
     """[B, P, 3] collision points in world frame and their lever arms."""
     R = quat.quat_to_rotmat(state.rot)  # [B, 3, 3]
-    arms = jnp.einsum("bij,bpj->bpi", R, params.points)  # r_i in world
+    arms = _einsum("bij,bpj->bpi", R, params.points)  # r_i in world
     return state.pos[:, None, :] + arms, arms
 
 
@@ -182,7 +189,7 @@ def _ground_contacts(
     n_active = jnp.maximum(jnp.sum(active, axis=1, keepdims=True), 1)
 
     R = quat.quat_to_rotmat(state.rot)
-    inv_I_world = jnp.einsum(
+    inv_I_world = _einsum(
         "bij,bj,bkj->bik", R, params.inv_inertia, R
     )  # R diag(I^-1) R^T
 
@@ -194,7 +201,7 @@ def _ground_contacts(
 
     # effective mass along the normal at each point
     rxn = jnp.cross(r, n)  # [B, P, 3]
-    ang_term = jnp.einsum(
+    ang_term = _einsum(
         "bpi,bij,bpj->bp", rxn, inv_I_world, rxn
     )
     m_eff_inv = params.inv_mass[:, None] + ang_term
@@ -214,7 +221,7 @@ def _ground_contacts(
     u_t_norm = jnp.linalg.norm(u_t, axis=-1)
     t_hat = u_t / jnp.maximum(u_t_norm, 1e-9)[..., None]
     rxt = jnp.cross(r, t_hat)
-    ang_term_t = jnp.einsum("bpi,bij,bpj->bp", rxt, inv_I_world, rxt)
+    ang_term_t = _einsum("bpi,bij,bpj->bp", rxt, inv_I_world, rxt)
     m_eff_t = 1.0 / jnp.maximum(params.inv_mass[:, None] + ang_term_t, 1e-9)
     jt = jnp.minimum(m_eff_t * u_t_norm, params.friction[:, None] * jn)
     jt = jnp.where(active, jt, 0.0)
@@ -224,7 +231,7 @@ def _ground_contacts(
     imp = jnp.where(active[..., None], imp, 0.0)
 
     dv = params.inv_mass[:, None] * jnp.sum(imp, axis=1)
-    dw = jnp.einsum(
+    dw = _einsum(
         "bij,bj->bi", inv_I_world, jnp.sum(jnp.cross(r, imp), axis=1)
     )
     return dv, dw
@@ -276,7 +283,7 @@ def _pair_contacts(
     b = state.pos.shape[0]
     x, r_arm = _world_points(state, params)  # [B, P, 3] of OWNER i
     R = quat.quat_to_rotmat(state.rot)  # [B, 3, 3]
-    inv_I_world = jnp.einsum("bij,bj,bkj->bik", R, params.inv_inertia, R)
+    inv_I_world = _einsum("bij,bj,bkj->bik", R, params.inv_inertia, R)
 
     # broad phase
     diff = state.pos[:, None, :] - state.pos[None, :, :]
@@ -290,7 +297,7 @@ def _pair_contacts(
 
     # i's points in j's local frame: [B_i, B_j, P, 3]
     rel = x[:, None, :, :] - state.pos[None, :, None, :]
-    p_local = jnp.einsum("jab,ijpa->ijpb", R, rel)  # R_j^T @ rel
+    p_local = _einsum("jab,ijpa->ijpb", R, rel)  # R_j^T @ rel
     # signed distance to each hull facet of j, with a margin shell
     # (Bullet keeps a similar shell) so exactly-touching faces resolve.
     # j's collision shape is a UNION of convex parts (plane_group ids —
@@ -300,7 +307,7 @@ def _pair_contacts(
     # the deepest one supplies depth and normal.
     facet_pen = (
         (params.plane_d + margin)[None, :, None, :]
-        - jnp.einsum("jha,ijpa->ijph", params.plane_n, p_local)
+        - _einsum("jha,ijpa->ijph", params.plane_n, p_local)
     )  # [B_i, B_j, P, H]
     depth, h_star = _hull_union_reduce(
         facet_pen,
@@ -321,7 +328,7 @@ def _pair_contacts(
         axis=-2,
     )[..., 0, :]  # [B_i, B_j, P, 3] outward facet normal in j's frame
     # world normal points from j toward i (outward from j's hull part)
-    n = jnp.einsum("jab,ijpb->ijpa", R, n_local)
+    n = _einsum("jab,ijpb->ijpa", R, n_local)
 
     # contact-point velocities
     r_i = r_arm[:, None, :, :]  # arm on i
@@ -337,8 +344,8 @@ def _pair_contacts(
     # effective mass with angular terms on both bodies
     rxn_i = jnp.cross(r_i, n)
     rxn_j = jnp.cross(r_j, n)
-    ang_i = jnp.einsum("ijpa,iab,ijpb->ijp", rxn_i, inv_I_world, rxn_i)
-    ang_j = jnp.einsum("ijpa,jab,ijpb->ijp", rxn_j, inv_I_world, rxn_j)
+    ang_i = _einsum("ijpa,iab,ijpb->ijp", rxn_i, inv_I_world, rxn_i)
+    ang_j = _einsum("ijpa,jab,ijpb->ijp", rxn_j, inv_I_world, rxn_j)
     m_eff = 1.0 / jnp.maximum(
         params.inv_mass[:, None, None] + params.inv_mass[None, :, None]
         + ang_i + ang_j,
@@ -376,7 +383,7 @@ def _pair_contacts(
     torque_i = jnp.sum(jnp.cross(r_i, imp), axis=(1, 2))
     # reaction torque on body j accumulates over the other index
     torque_j = -jnp.sum(jnp.swapaxes(jnp.cross(r_j, imp), 0, 1), axis=(1, 2))
-    dw = jnp.einsum("bij,bj->bi", inv_I_world, torque_i + torque_j)
+    dw = _einsum("bij,bj->bi", inv_I_world, torque_i + torque_j)
     return dv, dw
 
 
@@ -419,9 +426,9 @@ def _edge_manifold(
     """
     b = state.pos.shape[0]
     R = quat.quat_to_rotmat(state.rot)  # [B, 3, 3]
-    inv_I_world = jnp.einsum("bij,bj,bkj->bik", R, params.inv_inertia, R)
-    a_w = state.pos[:, None, :] + jnp.einsum("bij,bej->bei", R, params.edge_a)
-    b_w = state.pos[:, None, :] + jnp.einsum("bij,bej->bei", R, params.edge_b)
+    inv_I_world = _einsum("bij,bj,bkj->bik", R, params.inv_inertia, R)
+    a_w = state.pos[:, None, :] + _einsum("bij,bej->bei", R, params.edge_a)
+    b_w = state.pos[:, None, :] + _einsum("bij,bej->bei", R, params.edge_b)
 
     # broad phase, ordered pairs only (i < j): each unordered pair is
     # computed once and applied +/- to both bodies
@@ -524,16 +531,16 @@ def _edge_manifold(
     def union_depth(p_world, frame):  # frame 'i' or 'j'
         if frame == "j":
             rel = p_world - state.pos[None, :, None, :]
-            p_loc = jnp.einsum("jab,ijka->ijkb", R, rel)
-            facet = (params.plane_d + margin)[None, :, None, :] - jnp.einsum(
+            p_loc = _einsum("jab,ijka->ijkb", R, rel)
+            facet = (params.plane_d + margin)[None, :, None, :] - _einsum(
                 "jha,ijka->ijkh", params.plane_n, p_loc
             )
             group = params.plane_group[None, :, None, :]
             real = (params.plane_d < 1e8)[None, :, None, :]
         else:
             rel = p_world - state.pos[:, None, None, :]
-            p_loc = jnp.einsum("iab,ijka->ijkb", R, rel)
-            facet = (params.plane_d + margin)[:, None, None, :] - jnp.einsum(
+            p_loc = _einsum("iab,ijka->ijkb", R, rel)
+            facet = (params.plane_d + margin)[:, None, None, :] - _einsum(
                 "iha,ijka->ijkh", params.plane_n, p_loc
             )
             group = params.plane_group[:, None, None, :]
@@ -557,7 +564,7 @@ def _edge_manifold(
         hstar_j[..., None, None].repeat(3, -1),
         axis=-2,
     )[..., 0, :]  # [B, B, K, 3] in j's frame
-    facet_n_world = jnp.einsum("jab,ijkb->ijka", R, facet_n_local)
+    facet_n_world = _einsum("jab,ijkb->ijka", R, facet_n_local)
     dotf = jnp.sum(nk * facet_n_world, -1)
     flip = jnp.where(jnp.abs(dotf) > 1e-6, jnp.sign(dotf), 1.0)
     nk = nk * flip[..., None]
@@ -568,8 +575,8 @@ def _edge_manifold(
     r_j = m - state.pos[None, :, None, :]
     rxn_i = jnp.cross(r_i, nk)
     rxn_j = jnp.cross(r_j, nk)
-    ang_i = jnp.einsum("ijka,iab,ijkb->ijk", rxn_i, inv_I_world, rxn_i)
-    ang_j = jnp.einsum("ijka,jab,ijkb->ijk", rxn_j, inv_I_world, rxn_j)
+    ang_i = _einsum("ijka,iab,ijkb->ijk", rxn_i, inv_I_world, rxn_i)
+    ang_j = _einsum("ijka,jab,ijkb->ijk", rxn_j, inv_I_world, rxn_j)
     m_eff = 1.0 / jnp.maximum(
         params.inv_mass[:, None, None]
         + params.inv_mass[None, :, None]
@@ -620,7 +627,7 @@ def _edge_impulses(
     dv = params.inv_mass[:, None] * (sum_as_i - sum_as_j)
     torque_i = jnp.sum(jnp.cross(r_i, imp), axis=(1, 2))
     torque_j = -jnp.sum(jnp.cross(r_j, imp), axis=(0, 2))
-    dw = jnp.einsum("bij,bj->bi", inv_I_world, torque_i + torque_j)
+    dw = _einsum("bij,bj->bi", inv_I_world, torque_i + torque_j)
     return dv, dw
 
 

@@ -6,7 +6,7 @@ vstacking freshly transformed object clouds EVERY FRAME
 mode mutates the object tensors incrementally per timestep
 (src/gs/pegasus_setup.py:178-193), accumulating fp drift.
 
-TPU-first redesign:
+Redesign:
   * merge env + canonical (untransformed) objects ONCE into a
     ``SceneTemplate`` with per-splat ``object_id``;
   * per frame, gather each splat's body pose (R[body], t[body]) and apply
@@ -25,7 +25,7 @@ from typing import List, Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pegasus_tpu.utils import pytree
 from jax.lax import Precision
 
 from pegasus_tpu.gs.cloud import GaussianCloud, merge
@@ -35,7 +35,7 @@ from pegasus_tpu.utils import sh as shlib
 _PREC = Precision.HIGHEST
 
 
-@struct.dataclass
+@pytree.dataclass
 class SceneTemplate:
     """Merged canonical scene cloud + per-body metadata.
 
@@ -46,7 +46,7 @@ class SceneTemplate:
 
     cloud: GaussianCloud  # merged, object_id = body id
     pivots: jnp.ndarray  # [B, 3] canonical per-body rotation pivot (centroid)
-    num_bodies: int = struct.field(pytree_node=False)
+    num_bodies: int = pytree.field(pytree_node=False)
 
     @classmethod
     def build(
@@ -81,12 +81,10 @@ def pose_scene(
     body centroid (reference: src/gs/gaussian_model.py:579-582 via
     pegasus_setup.apply_transformation_on_gs, src/gs/pegasus_setup.py:195-207).
 
-    Per-splat per-body matrices are fetched as ONE-HOT MXU MATMULS
+    Per-splat per-body matrices are fetched as ONE-HOT MATMULS
     (onehot[N,B] @ mats[B,k]) and applied with unrolled elementwise
-    multiply-adds instead of gathered [N,d,d] batched-tiny-matmul einsums:
-    XLA lowers the latter to heavily padded per-splat d x d MXU matmuls —
-    7.7 ms per SH band and 4.6 ms for xyz at 256k splats on v5e, vs
-    ~1 ms each this way (benchmarks/pose_variants_tpu.py).  One-hot
+    multiply-adds instead of gathered [N,d,d] batched-tiny-matmul einsums,
+    which XLA lowers to padded per-splat d x d products.  One-hot
     weights are exactly 0/1, so the "gather" is bit-exact.
     """
     cloud = template.cloud

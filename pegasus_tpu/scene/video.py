@@ -12,18 +12,27 @@ import numpy as np
 
 
 class VideoStreams:
+    """The five streams open (and OpenCV is imported) at the first
+    ``write_frame``: runs that write no video need no OpenCV."""
+
     STREAMS = ("rgb", "object_center", "seg", "rgb_seg", "depth")
 
     def __init__(self, output: str, width: int, height: int, fps: int = 10):
+        self._output = output
+        self._size = (width, height)
+        self._fps = fps
+        self.writers = {}
+
+    def _open(self) -> None:
         import cv2
 
-        os.makedirs(output, exist_ok=True)
+        os.makedirs(self._output, exist_ok=True)
         fourcc = cv2.VideoWriter_fourcc(*"mp4v")
-        size = (width, height)
         self._cv2 = cv2
         self.writers = {
             name: cv2.VideoWriter(
-                os.path.join(output, f"{name}_video.mp4"), fourcc, fps, size
+                os.path.join(self._output, f"{name}_video.mp4"), fourcc,
+                self._fps, self._size,
             )
             for name in self.STREAMS
         }
@@ -36,6 +45,8 @@ class VideoStreams:
         center_image: np.ndarray | None = None,  # [H,W,3] uint8
         max_distance_in_meter: float = 5.0,
     ) -> None:
+        if not self.writers:
+            self._open()
         cv2 = self._cv2
         seg_u8 = None
         if seg is not None:

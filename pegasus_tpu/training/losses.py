@@ -27,9 +27,8 @@ def ssim(img1: jnp.ndarray, img2: jnp.ndarray, window_size: int = 11) -> jnp.nda
 
     The Gaussian window is SEPARABLE (outer(g, g)), so each blur is two
     rank-1 convs — 2*S instead of S^2 taps — and channels fold into the
-    conv BATCH dim rather than a grouped-conv feature dim (TPU lowers
-    feature_group_count > 1 off the fast conv path).  Measured on a v5e:
-    the full gs_loss fwd+bwd at 512x512 drops 18.1 -> ~3 ms.  Numerics
+    conv BATCH dim rather than a grouped-conv feature dim (grouped convs
+    with feature_group_count > 1 can leave the fast conv path).  Numerics
     are identical to the 2-D window up to float addition order.
     """
     c1 = 0.01**2
@@ -49,7 +48,7 @@ def ssim(img1: jnp.ndarray, img2: jnp.ndarray, window_size: int = 11) -> jnp.nda
                 window_strides=(1, 1),
                 padding="SAME",
                 dimension_numbers=("NHWC", "HWIO", "NHWC"),
-                # fp32 taps: TPU convs default to bf16 inputs, which put
+                # fp32 taps: reduced-precision conv inputs would put
                 # ~0.4% noise on mu/sigma; at 2x11 taps fp32 is free
                 precision=jax.lax.Precision.HIGHEST,
             )

@@ -6,7 +6,7 @@ SURVEY 3.5): per iteration pick a camera, render, L1+D-SSIM loss, Adam,
 periodic densify/split/clone/prune and opacity reset, SH-degree warmup,
 PLY checkpoints at test/save iterations.
 
-TPU-first differences:
+Differences from the reference:
   * the splat set lives in FIXED-CAPACITY buffers with an ``alive`` mask —
     XLA shapes never change; densification fills dead slots, pruning marks
     slots dead (the reference reallocates torch tensors + rebuilds Adam
@@ -29,7 +29,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from pegasus_tpu.utils import pytree
 
 from pegasus_tpu.camera import Camera
 from pegasus_tpu.gs.cloud import GaussianCloud
@@ -71,13 +71,13 @@ class TrainConfig:
     # crosses the threshold; |grad| accumulation recovers it.  The
     # statistic dominates the signed norm, so pair with a higher
     # densify_grad_threshold (AbsGS uses 4e-4 vs Inria's 2e-4).
-    # Requires the pallas/pallas_interpret backend (its structure-aware
-    # VJP exposes per-entry cotangents; the tiled backend's plain
-    # scatter transpose does not).
+    # The per-entry cotangents come from the structure-aware gather VJP
+    # of the binning (ops/binning.py _gather_rows_structured).
     densify_abs_grad: bool = False
 
 
-class TrainState(struct.PyTreeNode):
+@pytree.dataclass
+class TrainState:
     cloud: GaussianCloud
     opt_state: optax.OptState
     xyz_grad_accum: jnp.ndarray  # [cap]
@@ -141,11 +141,9 @@ class GSTrainer:
         max_per_tile: int = 1024,
         backend: str = "auto",
     ):
-        """backend: 'tiled' (XLA, portable), 'pallas' (fused TPU forward +
-        custom-VJP backward kernels, ops/pallas_vjp.py), or 'auto'
-        (pallas on TPU, tiled elsewhere).  The reference's single CUDA
-        rasterizer serves both generation and training; the Pallas pair is
-        its train-side equivalent here."""
+        """backend: 'tiled' (XLA compositing, differentiated by autodiff)
+        or 'auto', which is 'tiled' on every platform: no GPU VJP
+        compositor exists yet."""
         from pegasus_tpu.utils.compile_cache import enable_compilation_cache
 
         enable_compilation_cache()
@@ -154,16 +152,9 @@ class GSTrainer:
         self.height = height
         self.background = jnp.asarray(background, jnp.float32)
         self.max_per_tile = max_per_tile
-        if backend == "auto":
-            backend = (
-                "pallas" if jax.devices()[0].platform == "tpu" else "tiled"
-            )
-        self.backend = backend
-        if config.densify_abs_grad and not backend.startswith("pallas"):
-            raise ValueError(
-                "densify_abs_grad needs the pallas backend (per-entry "
-                "cotangents come from its structure-aware VJP)"
-            )
+        if backend not in ("auto", "tiled"):
+            raise ValueError(f"unknown training backend {backend!r}")
+        self.backend = "tiled"
         if render_fn is None:
             from pegasus_tpu.ops.rasterize_tiled import rasterize_tiled
 
@@ -309,7 +300,7 @@ class GSTrainer:
 
         The reference trains strictly single-GPU, batch size 1
         (gs_training.py); here each device renders its camera shard,
-        gradients average with one psum over ICI, and the (replicated)
+        gradients average with one psum across devices, and the (replicated)
         optimizer applies a single update — effectively Inria with batch
         size = mesh size.  Densification statistics sum across the batch
         so split/clone pressure matches the larger effective batch.
@@ -356,12 +347,10 @@ class GSTrainer:
     def _render_with_offset(self, cloud, cam, mean2d_offset, active_deg,
                             abs_sink=None):
         """Differentiable render with a screen-space offset injected after
-        projection (the gradient probe for densification).  Backend
-        'tiled' = XLA compositing (portable); 'pallas' = the fused
-        forward + custom-VJP backward kernel pair (ops/pallas_vjp.py) —
-        the fast path at real training resolutions.  In both, the sort
+        projection (the gradient probe for densification).  The sort
         order and tile keys are constants w.r.t. the parameters, exactly
-        like the CUDA backward treats its binning."""
+        like the CUDA backward treats its binning; the entry gather's
+        structure-aware VJP feeds ``abs_sink`` (AbsGS statistic)."""
         from pegasus_tpu.ops.projection import project_gaussians
         from pegasus_tpu.ops.rasterize_tiled import rasterize_projected_tiled
 
@@ -378,20 +367,11 @@ class GSTrainer:
             mean_x=proj.mean_x + mean2d_offset[:, 0],
             mean_y=proj.mean_y + mean2d_offset[:, 1],
         )
-        if self.backend.startswith("pallas"):
-            from pegasus_tpu.ops.pallas_vjp import rasterize_projected_pallas
-
-            return rasterize_projected_pallas(
-                proj, self.width, self.height, self.background,
-                max_objects=1,
-                big_budget=min(16384, self.config.capacity),
-                interpret=self.backend == "pallas_interpret",
-                abs_grad_sink=abs_sink,
-            )
         return rasterize_projected_tiled(
             proj, self.width, self.height, self.background,
             max_objects=1, max_per_tile=self.max_per_tile,
             big_budget=min(16384, self.config.capacity),
+            abs_grad_sink=abs_sink if self.config.densify_abs_grad else None,
         )
 
     # -- densify / prune -------------------------------------------------------------

@@ -1,55 +1,50 @@
 """Persistent XLA compilation cache for generation/training entry points.
 
-The full-depth roster run (benchmarks/mini_pegaset_fulldepth.json) showed
-that one-time JIT compiles dominate the first scene of every (mode,
-n_objects) shape class: scene 3's 210 s wall was ~130 s of XLA compile
-against a ~20 s steady state.  The reference pays its analogous one-time
-cost (CUDA extension build) once per install; JAX can do the same by
-persisting compiled executables across processes, so repeat runs — the
-production case for a dataset generator that is resumable per scene —
-skip straight to steady state.
+One-time JIT compiles dominate the first scene of every (mode,
+n_objects) shape class.  JAX can persist compiled executables across
+processes, so repeat runs — the production case for a dataset generator
+that is resumable per scene — skip straight to steady state.
 
-Enabled by default at every generation/bench/training entry.  Control via
-``PEGASUS_TPU_COMPILE_CACHE``: ``0`` disables, any other value relocates
-the cache directory (default ``~/.cache/pegasus_tpu/xla``).
-
-Reference context: the reference has no analogue (torch extensions are
-compiled at pip-install time, reference submodules README); this is the
-TPU-native equivalent of that install-time amortization.
+Rules, in order:
+  * ``JAX_COMPILATION_CACHE_DIR`` set: JAX reads it itself, and this
+    module sets nothing;
+  * ``PEGASUS_TPU_COMPILE_CACHE=0``: no persistent cache;
+  * otherwise the cache lives at one fixed path inside the checkout,
+    ``<repo>/.jax_cache`` (git-ignored).  The path is part of the cache's
+    key, so it must not move between runs.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
-_DEFAULT_DIR = os.path.join(
-    os.path.expanduser("~"), ".cache", "pegasus_tpu", "xla"
-)
+DEFAULT_DIR = str(Path(__file__).resolve().parents[2] / ".jax_cache")
 _enabled = False
 
 
-def enable_compilation_cache(path: str | None = None) -> str | None:
-    """Point JAX's persistent compilation cache at a writable directory.
+def enable_compilation_cache() -> str | None:
+    """Point JAX's persistent compilation cache at its directory.
 
     Idempotent; safe to call from every entry point.  Returns the cache
-    directory in use, or None when disabled (``PEGASUS_TPU_COMPILE_CACHE=0``
-    or an unwritable directory).  Only compiles slower than 2 s are
-    persisted — steady-state dispatch is never IO-taxed.
+    directory this call set, or None when it set none (see the module
+    docstring, or an unwritable directory).  Only compiles slower than
+    2 s are persisted — steady-state dispatch is never IO-taxed.
     """
     global _enabled
     if _enabled:
         return None
     _enabled = True  # one attempt per process, even on failure
-    env = os.environ.get("PEGASUS_TPU_COMPILE_CACHE", "")
-    if env == "0":
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return None
-    cache_dir = path or (env if env not in ("", "1") else None) or _DEFAULT_DIR
+    if os.environ.get("PEGASUS_TPU_COMPILE_CACHE") == "0":
+        return None
     try:
-        os.makedirs(cache_dir, exist_ok=True)
-        import jax
-
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:
+        os.makedirs(DEFAULT_DIR, exist_ok=True)
+    except OSError:
         return None  # cache is an optimization, never a failure mode
-    return cache_dir
+    import jax
+
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    return DEFAULT_DIR

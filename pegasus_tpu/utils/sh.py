@@ -111,8 +111,7 @@ def eval_sh(deg: int, sh, dirs):
     rasterizer does).
     """
     # broadcast-FMA formulation: tiny contraction dims make einsum/matmul a
-    # poor fit on TPU (measured 16 ms in the projection stage); explicit
-    # multiply-adds stay on the VPU and fuse.
+    # poor fit; explicit multiply-adds fuse into the elementwise kernel.
     result = C0 * sh[..., 0, :]
     if deg >= 1:
         b1 = _basis_band1(dirs)  # [..., 3]

@@ -1,48 +1,71 @@
 """Persistent compilation cache wiring (utils/compile_cache.py)."""
 
+import subprocess
+from pathlib import Path
+
 import jax
 
 from pegasus_tpu.utils import compile_cache
 
+REPO = Path(__file__).resolve().parents[1]
 
-def _reset():
+
+def _reset(monkeypatch):
     compile_cache._enabled = False
-
-
-def test_enable_points_jax_at_dir(tmp_path, monkeypatch):
-    _reset()
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     monkeypatch.delenv("PEGASUS_TPU_COMPILE_CACHE", raising=False)
-    d = str(tmp_path / "xla")
+
+
+def test_enable_points_jax_at_dir(monkeypatch):
+    _reset(monkeypatch)
+    before = jax.config.jax_compilation_cache_dir
     try:
-        got = compile_cache.enable_compilation_cache(d)
-        assert got == d
-        assert jax.config.jax_compilation_cache_dir == d
+        got = compile_cache.enable_compilation_cache()
+        assert got == str(REPO / ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == got
         assert jax.config.jax_persistent_cache_min_compile_time_secs == 2.0
         # idempotent: second call is a no-op
-        assert compile_cache.enable_compilation_cache(str(tmp_path)) is None
-        assert jax.config.jax_compilation_cache_dir == d
+        assert compile_cache.enable_compilation_cache() is None
+        assert jax.config.jax_compilation_cache_dir == got
     finally:
-        jax.config.update("jax_compilation_cache_dir", None)
+        jax.config.update("jax_compilation_cache_dir", before)
         compile_cache._enabled = False
 
 
 def test_env_var_disables(monkeypatch):
-    _reset()
+    _reset(monkeypatch)
     monkeypatch.setenv("PEGASUS_TPU_COMPILE_CACHE", "0")
+    before = jax.config.jax_compilation_cache_dir
     try:
         assert compile_cache.enable_compilation_cache() is None
-        assert jax.config.jax_compilation_cache_dir is None
+        assert jax.config.jax_compilation_cache_dir == before
     finally:
         compile_cache._enabled = False
 
 
-def test_env_var_relocates(tmp_path, monkeypatch):
-    _reset()
-    d = str(tmp_path / "relocated")
-    monkeypatch.setenv("PEGASUS_TPU_COMPILE_CACHE", d)
+def test_jax_cache_env_var_honoured(tmp_path, monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set the program sets no directory
+    of its own (JAX reads the variable itself)."""
+    _reset(monkeypatch)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
+    before = jax.config.jax_compilation_cache_dir
     try:
-        assert compile_cache.enable_compilation_cache() == d
-        assert jax.config.jax_compilation_cache_dir == d
+        assert compile_cache.enable_compilation_cache() is None
+        assert jax.config.jax_compilation_cache_dir == before
+        assert not (tmp_path / "c").exists()
     finally:
-        jax.config.update("jax_compilation_cache_dir", None)
         compile_cache._enabled = False
+
+
+def test_default_dir_is_in_checkout_and_ignored():
+    d = Path(compile_cache.DEFAULT_DIR)
+    assert d.parent == REPO
+    rc = subprocess.run(
+        ["git", "-C", str(REPO), "check-ignore", "-q", str(d / "x")],
+        capture_output=True,
+    ).returncode
+    if rc == 128:  # not a git checkout: read .gitignore directly
+        lines = (REPO / ".gitignore").read_text().split()
+        assert f"{d.name}/" in lines
+    else:
+        assert rc == 0

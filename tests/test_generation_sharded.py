@@ -3,7 +3,7 @@
 The scene-data-parallel driver (pegasus_tpu/parallel/generation.py) must
 produce the same BOP tree the sequential path writes — multi-scene, with
 varying per-scene object counts — from ONE sharded XLA program per batch
-(SURVEY section 7 step 7; BASELINE "< 1 h on v5e-8" scale goal).
+(SURVEY section 7 step 7).
 """
 
 import json

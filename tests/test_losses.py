@@ -12,7 +12,7 @@ from pegasus_tpu.training.losses import _gaussian_window, gs_loss, ssim
 
 def _ssim_dense(img1, img2, window_size=11):
     """The pre-round-3 dense grouped-conv formulation (kept as the test
-    oracle; the shipped ssim() is separable for TPU speed)."""
+    oracle; the shipped ssim() is separable for speed)."""
     c1, c2 = 0.01**2, 0.03**2
     win = _gaussian_window(window_size)[:, :, None, None]
 

@@ -1,5 +1,6 @@
-"""Pallas kernel parity in interpret mode (tiny scene; the TPU-compiled
-path is exercised by bench.py on hardware)."""
+"""Pallas compositor parity in interpret mode (tiny scenes; the compiled
+GPU kernel is checked against the golden renderer by chip_smoke.py and the
+``gpu``-marked test below)."""
 
 import numpy as np
 import pytest
@@ -28,46 +29,6 @@ def test_pallas_interpret_matches_golden(rng):
     pal = rasterize_pallas(
         scene, cam, background=(0.1, 0.1, 0.1), max_objects=2,
         chunk=128, interpret=True,
-    )
-    assert psnr(ref.rgb, pal.rgb) > 40
-    assert psnr(ref.depth, pal.depth, peak=float(np.asarray(ref.depth).max())) > 40
-    for name in ("seg_weights", "vis_weights", "amodal"):
-        assert psnr(getattr(ref, name), getattr(pal, name)) > 40, name
-
-
-def test_pallas_multitile_matches_golden(rng):
-    env = make_plane_cloud(rng, n=300, size=1.0)
-    box = make_box_cloud(rng, n=150, center=(0, 0, 0.08), object_id=1)
-    scene = merge([env, box])
-    cam = Camera.look_at(
-        eye=(0.4, 0.3, 0.5), target=(0, 0, 0.05), up=(0, 0, 1),
-        fovx=np.deg2rad(55), fovy=np.deg2rad(45), width=32, height=32,
-    )
-    ref = rasterize_reference(scene, cam, background=(0.1, 0.1, 0.1), max_objects=2)
-    pal = rasterize_pallas(
-        scene, cam, background=(0.1, 0.1, 0.1), max_objects=2,
-        chunk=128, interpret=True, tiles_per_program=2,
-    )
-    assert psnr(ref.rgb, pal.rgb) > 40
-    for name in ("seg_weights", "vis_weights", "amodal"):
-        assert psnr(getattr(ref, name), getattr(pal, name)) > 40, name
-
-
-def test_pallas_pack8_matches_golden(rng):
-    """PACKED8 generation layout (10-bit color / 14-bit opacity
-    fixed-point): quantization noise measured ~66 dB on hardware, so the
-    40 dB golden gate must hold identically in interpret mode."""
-    env = make_plane_cloud(rng, n=300, size=1.0)
-    box = make_box_cloud(rng, n=150, center=(0, 0, 0.08), object_id=1)
-    scene = merge([env, box])
-    cam = Camera.look_at(
-        eye=(0.4, 0.3, 0.5), target=(0, 0, 0.05), up=(0, 0, 1),
-        fovx=np.deg2rad(55), fovy=np.deg2rad(45), width=32, height=32,
-    )
-    ref = rasterize_reference(scene, cam, background=(0.1, 0.1, 0.1), max_objects=2)
-    pal = rasterize_pallas(
-        scene, cam, background=(0.1, 0.1, 0.1), max_objects=2,
-        chunk=128, interpret=True, tiles_per_program=2, pack_params=True,
     )
     assert psnr(ref.rgb, pal.rgb) > 40
     assert psnr(ref.depth, pal.depth, peak=float(np.asarray(ref.depth).max())) > 40
@@ -260,49 +221,6 @@ def test_adaptive_mid_rasterize_parity(rng):
         )
 
 
-def test_packed8_roundtrip_bounds(rng):
-    """PACKED8 encode/decode: radius and object id are EXACT; color and
-    opacity quantization errors are bounded by half an LSB."""
-    import jax
-    import jax.numpy as jnp
-
-    from pegasus_tpu.ops import binning
-    from pegasus_tpu.ops.projection import project_gaussians
-
-    env = make_plane_cloud(rng, n=400, size=1.0)
-    box = make_box_cloud(rng, n=200, center=(0, 0, 0.08), object_id=3)
-    scene = merge([env, box])
-    cam = Camera.look_at(
-        eye=(0.4, 0.3, 0.5), target=(0, 0, 0.05), up=(0, 0, 1),
-        fovx=np.deg2rad(55), fovy=np.deg2rad(45), width=64, height=64,
-    )
-    proj = project_gaussians(scene, cam)
-    cols = binning._pack_columns8(proj)
-    assert len(cols) == binning.PACKED8_DIM
-
-    # f32 rows pass through untouched
-    np.testing.assert_array_equal(cols[binning.P8_MX], np.asarray(proj.mean_x))
-    np.testing.assert_array_equal(cols[binning.P8_DEPTH], np.asarray(proj.depth))
-
-    shr = jax.lax.shift_right_logical
-    w_rgb = jax.lax.bitcast_convert_type(cols[binning.P8_RGB], jnp.int32)
-    w_oro = jax.lax.bitcast_convert_type(cols[binning.P8_ORO], jnp.int32)
-    cs = binning.COLOR_MAX / 1023.0
-    red = np.asarray((w_rgb & 0x3FF), np.float32) * cs
-    opac = np.asarray((w_oro & 0x3FFF), np.float32) / 16383.0
-    rad = np.asarray(shr(w_oro, 14) & 0x3FF, np.float32)
-    obj = np.asarray(shr(w_oro, 24), np.float32)
-
-    r_ref = np.clip(np.asarray(proj.color_r), 0.0, binning.COLOR_MAX)
-    assert np.abs(red - r_ref).max() <= 0.5 * cs + 1e-7
-    o_ref = np.clip(np.asarray(proj.opacity), 0.0, 1.0)
-    assert np.abs(opac - o_ref).max() <= 0.5 / 16383.0 + 1e-7
-    np.testing.assert_array_equal(
-        rad, np.minimum(np.asarray(proj.radius), 1023.0)
-    )
-    np.testing.assert_array_equal(obj, np.asarray(proj.object_id))
-
-
 def test_render_outputs_overflow_surface(rng):
     """rasterize_pallas surfaces TileBins.overflow; golden reports False."""
     env = make_plane_cloud(rng, n=300, size=1.0)
@@ -458,9 +376,8 @@ def test_entry_cap_overflow_propagates_to_frame(rng):
     """A cap smaller than the live entry count must flag overflow, and the
     flag must survive decode_modalities so the generation loop can surface
     it per scene (pegasus.py generate_dataset -> binning_overflow_frames).
-    Measured motivation: a realistic distant camera over the 1M bench
-    scene overflowed the 1.8N production cap
-    (benchmarks/adaptive_mid_1m.json)."""
+    Motivation: a distant camera that keeps the whole 1M bench scene
+    onscreen overflows the 1.8N production cap."""
     from pegasus_tpu.ops.render import render_frame
 
     env = make_plane_cloud(rng, n=300, size=1.0)
